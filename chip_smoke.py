@@ -1,0 +1,635 @@
+#!/usr/bin/env python3
+"""Smoke run of carpedeam_tpu_torch on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing one line with the elapsed seconds:
+
+  device    requires a CUDA device; prints the card's name and power limit
+  build     builds the CUDA kernels (one nvcc call) and the host C++ library
+  kernels   each kernel against its plain PyTorch version on the card, at
+            the shapes its driver gives it; kernel times are device times
+            from torch.profiler with the L2 cache flushed before each launch
+  assemble  ancient_assemble on 120,000 synthetic reads (seed 1, coverage
+            20, lengths 35-120, mean 51); every kernel must have launched
+            and every device stage must have run records on the card
+  repeat    nuclassemble (2 iterations) on a 15,000-read slice, twice on the
+            card and once on the CPU: all three FASTA files must be equal
+
+The second-to-last line is a JSON object with each kernel's numbers; the
+last line is {"ok": true, "device": {...}}.  Any failed phase exits
+non-zero without that line.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+T0 = time.perf_counter()
+H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
+H100_F32_OPS_PER_S = 67e12      # CUDA cores (non-tensor) f32 peak
+F32_TOL = 1e-4                  # consensus log-likelihood sums, see below
+
+
+def phase(name: str, msg: str) -> None:
+    print(f"[{time.perf_counter() - T0:8.2f}s] {name}: {msg}", flush=True)
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+@contextlib.contextmanager
+def capture(module, name: str, calls: list):
+    """Record the arguments of every call of module.<name> (tensors are
+    cloned) while the drivers run; the call itself goes through."""
+    import torch
+    fn = getattr(module, name)
+
+    def wrapper(*args):
+        calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args))
+        return fn(*args)
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of `fn` over `reps` back-to-back calls, by CUDA
+    events: the caller's view, host dispatch included."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+L2_FLUSH_BYTES = 128 << 20      # over twice the H100's 50 MB L2
+
+
+def kernel_ms(fn, kernel: str, reps: int) -> float:
+    """Mean device milliseconds per launch of the CUDA kernel named
+    `kernel` over `reps` calls of `fn`, from torch.profiler.  Before each
+    call a 128 MiB write flushes the L2 cache, so every launch reads its
+    inputs from HBM; the flush's own kernel is not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for e in prof.key_averages():
+        if kernel in e.key:
+            us += getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0))
+            n += e.count
+    check(n > 0 and us > 0, f"the profiler saw no launch of {kernel}")
+    return us / n / 1e3
+
+
+def sync() -> None:
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def device_profile():
+    """torch.profiler over the block: fills in the wall seconds, the
+    summed self device time of every device op and the five ops with the
+    most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        yield out
+        torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    out["device_ms"] = sum(r[0] for r in rows) / 1e3
+    out["top"] = [{"op": k[:60], "ms": round(us / 1e3, 4), "calls": n}
+                  for us, k, n in rows[:5]]
+
+
+def plane_cells(n_rows: int, L: int, windows) -> int:
+    """Distinct (row, column) cells of an (n_rows, L) plane covered by
+    `windows`, each a (rows, start, width) triple of tensors: columns
+    [start, start + width) of each row, taken mod L, width clipped to
+    [0, L].  A byte that several windows read counts once."""
+    import torch
+    dev = windows[0][0].device
+    diff = torch.zeros((n_rows, L + 1), dtype=torch.int32, device=dev)
+    for rows, start, width in windows:
+        rows = rows.to(torch.int64)
+        start = start.to(torch.int64) % L
+        end = start + width.to(torch.int64).clamp(0, L)
+        one = torch.ones(rows.shape, dtype=torch.int32, device=dev)
+        # [start, min(end, L)) and, where the window wraps, [0, end - L);
+        # an empty piece adds and removes one at the same column
+        for lo, hi in ((start, end.clamp(max=L)),
+                       (torch.zeros_like(start), (end - L).clamp(min=0))):
+            diff.index_put_((rows, lo), one, accumulate=True)
+            diff.index_put_((rows, hi), -one, accumulate=True)
+    cover = diff.cumsum(dim=1, dtype=torch.int32)[:, :L]
+    return int((cover > 0).sum().item())
+
+
+def bound(nbytes: int, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def synthetic_db(seed: int, n: int, lo: int, hi: int, genome_len: int):
+    """n substrings (lengths lo..hi, random strand, 0.2% substitutions) of
+    a random genome: contig-like sequences whose overlaps hit one plane
+    width level."""
+    import numpy as np
+
+    from carpedeam_tpu_torch.io.seqdb import SeqDB
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    comp = np.zeros(256, dtype=np.uint8)
+    comp[bases] = np.frombuffer(b"TGCA", dtype=np.uint8)
+    genome = bases[rng.integers(0, 4, genome_len)]
+    seqs = []
+    for _ in range(n):
+        ln = int(rng.integers(lo, hi + 1))
+        s0 = int(rng.integers(0, genome_len - ln))
+        s = genome[s0:s0 + ln].copy()
+        mut = rng.random(ln) < 0.002
+        s[mut] = bases[rng.integers(0, 4, int(mut.sum()))]
+        if rng.random() < 0.5:
+            s = comp[s[::-1]]
+        seqs.append(s.tobytes())
+    return SeqDB.from_sequences(seqs)
+
+
+def kernel_inputs(damage, params, device, reads):
+    """Drive the stage drivers and capture each kernel's arguments: first
+    the main path's first read-phase iteration over `reads` (plane width
+    128), then contig-like DBs at plane widths 512, 2048 and 4096."""
+    from carpedeam_tpu_torch.kmer.matcher import kmermatcher
+    from carpedeam_tpu_torch.ops import (correction_cuda, ext_cuda,
+                                         extension_batch, planes,
+                                         rescore_cuda, window_cuda)
+    from carpedeam_tpu_torch.stages.rescorediagonal import rescorediagonal
+    from carpedeam_tpu_torch.utils import bucket_len
+
+    cap = {k: [] for k in ("rescore_pairs", "correction", "window_identity",
+                           "consensus_likelihood")}
+    pref = kmermatcher(reads, params.kmer_size_reads,
+                       params.kmers_per_sequence,
+                       params.kmers_per_sequence_scale,
+                       params.include_only_extendable_reads,
+                       params.hash_shift)
+    pl, lens = planes.device_planes(
+        reads, max_len=bucket_len(min(512, int(reads.lengths.max()))),
+        device=device)
+    with capture(rescore_cuda, "rescore_pairs", cap["rescore_pairs"]):
+        aln = rescore_cuda.rescorediagonal_cuda(
+            reads, pref, params.seq_id_thr, params.eval_thr,
+            params.aln_len_thr, planes=pl, lengths=lens)
+    with capture(correction_cuda, "correction_kernel", cap["correction"]):
+        corr, shared = correction_cuda.correction_cuda(
+            reads, aln, damage, params.corr_reads_ry_seq_id,
+            params.seq_id_thr, planes=pl, lengths=lens, return_planes=True)
+    check(shared is not None, "corrected planes were not derived")
+    with capture(window_cuda, "window_identity", cap["window_identity"]), \
+            capture(ext_cuda, "consensus_likelihood",
+                    cap["consensus_likelihood"]):
+        extension_batch.batch_initial_scoring(
+            corr, aln, damage, params.seq_id_thr, params.ry_seq_id_thr,
+            params.likelihood_threshold, params.random_align_penal,
+            params.excess_penal, **shared)
+    phase("kernels", f"read phase: {len(pref.qkey)} pairs, "
+          f"{len(aln.qkey)} alignments")
+    for seed, n, lo, hi, glen, width in ((11, 3000, 150, 500, 150_000, 512),
+                                         (12, 400, 600, 2000, 150_000, 2048),
+                                         (13, 150, 3000, 4090, 120_000,
+                                          4096)):
+        db = synthetic_db(seed, n, lo, hi, glen)
+        pref = kmermatcher(db, 22, 200, 0.2, False)
+        aln = rescorediagonal(db, pref, params.seq_id_thr)
+        with capture(rescore_cuda, "rescore_pairs", cap["rescore_pairs"]):
+            dev_aln = rescore_cuda.rescorediagonal_cuda(
+                db, pref, params.seq_id_thr, device=device)
+        check(dev_aln.to_text() == aln.to_text(),
+              f"rescorediagonal at width {width} differs from the host "
+              f"scorer")
+        with capture(correction_cuda, "correction_kernel",
+                     cap["correction"]):
+            correction_cuda.correction_cuda(
+                db, aln, damage, params.corr_reads_ry_seq_id,
+                params.seq_id_thr, device=device)
+        if width == 512:
+            pl, lens = planes.device_planes(db, max_len=512, device=device)
+            with capture(window_cuda, "window_identity",
+                         cap["window_identity"]), \
+                    capture(ext_cuda, "consensus_likelihood",
+                            cap["consensus_likelihood"]):
+                extension_batch.batch_initial_scoring(
+                    db, aln, damage, params.seq_id_thr,
+                    params.ry_seq_id_thr, params.likelihood_threshold,
+                    params.random_align_penal, params.excess_penal,
+                    planes=pl, lengths=lens)
+    return cap
+
+
+def check_kernels(damage, params, device, reads) -> dict:
+    """Each kernel against its plain version on the captured inputs, with
+    times and bounds; returns {kernel: {"cases": [...]}}."""
+    import torch
+
+    from carpedeam_tpu_torch.ops import correction_cuda, rescore_cuda
+    cap = kernel_inputs(damage, params, device, reads)
+    rows = {}
+
+    def record(name, case, fn, ref, nbytes, ops, err):
+        ms = kernel_ms(fn, f"{name}_kernel", 20)
+        wrapper_ms = cuda_ms(fn, 20)
+        plain_ms = cuda_ms(ref, 3)
+        b_ms, b_by = bound(nbytes, ops)
+        row = rows.setdefault(name, {"cases": []})
+        # no single PyTorch call computes any of these functions, so
+        # library_ms stays null (see PERF.md)
+        row["cases"].append({"case": case, "ms": ms,
+                             "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+                             "bound_ms": b_ms, "bound_by": b_by,
+                             "library_ms": None, "max_abs_err": err,
+                             "bytes": nbytes, "ops": ops})
+        phase("kernels", f"{name} [{case}] ok: kernel {ms:.4f} ms "
+              f"(wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms by {b_by}: {nbytes} bytes, {ops:.0f} "
+              f"operations; max_abs_err {err})")
+
+    # ---- kernel 1: rescore (exact integers) ---------------------------
+    for lo, width in ((0, 128), (128, 512), (512, 2048)):
+        code2, sym2, lens, pairs = _largest(cap["rescore_pairs"], lo, width,
+                                            key=3)
+        out = rescore_cuda.rescore_pairs(code2, sym2, lens, pairs)
+        ref = rescore_cuda.rescore_pairs_reference(code2, sym2, lens, pairs)
+        sync()
+        check(torch.equal(out, ref), f"rescore_pairs differs at {width}")
+        # operations: one compare + one add per window column of the two
+        # candidates and of the identity window
+        cols, nbytes = _rescore_need(code2, lens, pairs, out)
+        record("rescore_pairs", f"L={code2.shape[1]} P={pairs.shape[0]}",
+               lambda: rescore_cuda.rescore_pairs(code2, sym2, lens, pairs),
+               lambda: rescore_cuda.rescore_pairs_reference(code2, sym2,
+                                                            lens, pairs),
+               nbytes, 2.0 * cols, 0)
+
+    # ---- kernel 2: correction (exact packed bases) --------------------
+    for lo, width in ((0, 128), (128, 512), (2048, 4096)):
+        args = _largest(cap["correction"], lo, width, key=1)
+        out = correction_cuda.correction_kernel(*args)
+        ref = correction_cuda.correction_kernel_reference(*args)
+        sync()
+        check(torch.equal(out, ref), f"correction differs at {width}")
+        sym2, rec_rows, rscal, slot_qid, qscal, wtab, g, rt = args
+        nbytes = _correction_bytes(*args, out)
+        # operations: per (slot, position) cell that an aligned record
+        # covers, 44 classes x 4 bases x (2 mul + 2 add) plus the 4-base
+        # prior (mul + add); uncovered cells keep their base unread
+        ops = _correction_cells(rscal, g, rt) * (44 * 4 * 4 + 4 * 2)
+        record("correction", f"L={sym2.shape[1]} "
+               f"blocks={slot_qid.numel() // g} "
+               f"G={g} R={rt}",
+               lambda: correction_cuda.correction_kernel(*args),
+               lambda: correction_cuda.correction_kernel_reference(*args),
+               nbytes, ops, 0)
+
+    # ---- kernel 3: window identity (exact integers) -------------------
+    for lo, width in ((0, 128), (128, 512)):
+        _check_window(_largest(cap["window_identity"], lo, width, key=1),
+                      record)
+
+    # ---- kernel 4: consensus likelihood (counts exact, f32 sum) -------
+    for lo, width in ((0, 128), (128, 512)):
+        _check_consensus(_largest(cap["consensus_likelihood"], lo, width,
+                                  key=1), record)
+    return rows
+
+
+def _check_window(args, record):
+    import torch
+
+    from carpedeam_tpu_torch.ops import window_cuda
+    out = window_cuda.window_identity(*args)
+    ref = window_cuda.window_identity_reference(*args)
+    sync()
+    check(torch.equal(out, ref), "window_identity differs")
+    # bytes: the window of each record's query and target rows, the
+    # record's row indices and the three scalars the kernel reads, and
+    # the output; operations: two compares and two adds per column
+    sym2, qrow, trow, scal = args
+    L = sym2.shape[1]
+    s = scal.to(torch.int64)
+    lo = s[:, 0].clamp(min=0)
+    width = ((s[:, 0] + s[:, 2]).clamp(max=L) - lo).clamp(min=0)
+    cells = plane_cells(sym2.shape[0], L, [
+        (qrow, lo, width), (trow, lo + (s[:, 1] - s[:, 0]), width)])
+    nbytes = cells + qrow.numel() * (4 + 4 + 12) + out.numel() * 4
+    record("window_identity", f"L={L} n={qrow.numel()}",
+           lambda: window_cuda.window_identity(*args),
+           lambda: window_cuda.window_identity_reference(*args),
+           nbytes, 4.0 * width.sum().item(), 0)
+
+
+def _check_consensus(args, record):
+    import torch
+
+    from carpedeam_tpu_torch.ops import ext_cuda
+    out = ext_cuda.consensus_likelihood(*args)
+    ref = ext_cuda.consensus_likelihood_reference(*args)
+    sync()
+    check(torch.equal(out[:, :3], ref[:, :3]),
+          "consensus_likelihood counts differ")
+    # both sum the f32 column values left to right, so the sums are
+    # expected equal; F32_TOL (1e-4 absolute, ~10 ulp of a sum of ~100
+    # terms) bounds them, and the caller re-scores every queue entrant
+    # in 80-bit arithmetic on the host
+    err = (out[:, 3] - ref[:, 3]).abs().max().item() if out.numel() else 0.0
+    check(err <= F32_TOL, f"consensus_likelihood sums differ by {err}")
+    # bytes: the columns of each record that can be used (target column
+    # in [0, tlen) and [ir0, ir1), query column in [0, qlen)) in its query
+    # and target rows, the row indices, the five scalars the kernel
+    # reads, the table and the output; operations: about ten per column
+    sym2, qrow, trow, scal, wtab = args
+    L = sym2.shape[1]
+    s = scal.to(torch.int64)
+    qpos0, qlen, tlen, ir0, ir1 = (s[:, i] for i in range(5))
+    lo = torch.maximum(torch.maximum(ir0, -qpos0), torch.zeros_like(ir0))
+    hi = torch.minimum(torch.minimum(tlen.clamp(max=L), ir1), qlen - qpos0)
+    width = (hi - lo).clamp(min=0)
+    cells = plane_cells(sym2.shape[0], L, [
+        (trow, lo, width), (qrow, lo + qpos0, width)])
+    nbytes = cells + qrow.numel() * (4 + 4 + 20) \
+        + wtab.numel() * 4 + out.numel() * 4
+    record("consensus_likelihood", f"L={L} n={qrow.numel()}",
+           lambda: ext_cuda.consensus_likelihood(*args),
+           lambda: ext_cuda.consensus_likelihood_reference(*args),
+           nbytes, 10.0 * width.sum().item(), err)
+
+
+def _largest(calls, lo: int, hi: int, key: int):
+    """The captured call with the most rows in argument `key` among those
+    whose plane (argument 0) is wider than lo and at most hi."""
+    calls = [c for c in calls if lo < c[0].shape[1] <= hi]
+    check(bool(calls), f"no captured call at plane width ({lo}, {hi}]")
+    return max(calls, key=lambda c: c[key].shape[0])
+
+
+def _correction_cells(rscal, g: int, rec_tile: int) -> float:
+    """(slot, position) cells covered by an aligned record of a slot."""
+    import torch
+    r = rscal.to(torch.int64)
+    use = (r[:, 5] != 0) & (r[:, 6] < g)
+    idx = torch.nonzero(use).flatten()
+    slot = (idx // rec_tile) * g + r[idx, 6]
+    qstart, alen = r[idx, 0], r[idx, 2]
+    width = int(alen.max().item()) if len(idx) else 0
+    off = torch.arange(width, device=rscal.device)
+    cols = qstart[:, None] + off[None, :]
+    ok = off[None, :] < alen[:, None]
+    cells = (slot[:, None] * (1 << 20) + cols)[ok]
+    return float(torch.unique(cells).numel())
+
+
+def _rescore_need(code2, lens, pairs, out) -> tuple[float, int]:
+    """(window columns visited, bytes needed) of the rescore kernel on
+    these inputs: the code bytes of both candidate windows and the symbol
+    bytes of the winning window in each pair's two rows (a byte that
+    several pairs read counts once), the lengths of the rows touched,
+    the pairs and the output."""
+    import torch
+    L = code2.shape[1]
+    n = lens.shape[0]
+    p = pairs.to(torch.int64)
+    qidx = p[:, 0] & 0x7FFFFFFF
+    qrow = qidx + torch.where(p[:, 0] < 0, n, 0)
+    tidx = p[:, 1]
+    diag_u = p[:, 2] & 0xFFFF
+    qlen = lens.to(torch.int64)[qidx]
+    tlen = lens.to(torch.int64)[tidx]
+    zero = torch.zeros_like(diag_u)
+    dneg = 65536 - diag_u
+    ok_neg = dneg < tlen
+    len_neg = torch.where(ok_neg, torch.minimum(tlen - dneg, qlen), zero)
+    sh_neg = torch.where(ok_neg, dneg, zero)
+    ok_pos = diag_u < qlen
+    len_pos = torch.where(ok_pos, torch.minimum(tlen, qlen - diag_u), zero)
+    sh_pos = torch.where(ok_pos, diag_u, zero)
+    # the winning window, as the kernel derives it from the packed result
+    v = out[:, 0].to(torch.int64) & 0xFFFFFFFF
+    use_pos = (v >> 31) == 1
+    got = (v & 0xFFFF) > 0
+    aln = torch.where(got, torch.where(use_pos, len_pos, len_neg), 1)
+    dist = torch.where(got, torch.where(use_pos, diag_u, dneg), zero)
+    q_off = torch.where(got & use_pos, dist, zero)
+    t_off = torch.where(got & ~use_pos, dist, zero)
+    code_cells = plane_cells(code2.shape[0], L, [
+        (qrow, zero, len_neg), (tidx, sh_neg, len_neg),
+        (qrow, sh_pos, len_pos), (tidx, zero, len_pos)])
+    sym_cells = plane_cells(code2.shape[0], L, [
+        (qrow, q_off, aln), (tidx, t_off, aln)])
+    rows_touched = torch.unique(torch.cat([qidx, tidx])).numel()
+    nbytes = code_cells + sym_cells + rows_touched * 4 \
+        + pairs.numel() * 4 + out.numel() * 4
+    cols = (len_neg.clamp(max=L) + len_pos.clamp(max=L)
+            + aln.clamp(max=L)).sum().item()
+    return float(cols), nbytes
+
+
+def _correction_bytes(sym2, rec_rows, rscal, slot_qid, qscal, wtab, g: int,
+                      rec_tile: int, out) -> int:
+    """Bytes the correction kernel needs on these inputs: every column of
+    each slot's query row, the aligned window of each record's row, the
+    scalars it reads (all eight of a record of a slot, the slot field of
+    a padding record, two of a slot), the table and the output."""
+    import torch
+    L = sym2.shape[1]
+    r = rscal.to(torch.int64)
+    mine = r[:, 6] < g
+    lo = r[:, 0].clamp(min=0)
+    width = ((r[:, 0] + r[:, 2]).clamp(max=L) - lo).clamp(min=0)
+    idx = torch.nonzero(mine).flatten()
+    cells = plane_cells(sym2.shape[0], L, [
+        (slot_qid, torch.zeros_like(slot_qid), torch.full_like(slot_qid, L)),
+        (rec_rows[idx], lo[idx] + (r[idx, 1] - r[idx, 0]), width[idx])])
+    n_mine = int(mine.sum().item())
+    return cells + n_mine * (4 + 32) + (rscal.shape[0] - n_mine) * 4 \
+        + slot_qid.numel() * (4 + 8) + wtab.numel() * 4 + out.numel()
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+
+    # ---- device --------------------------------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    smi_line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
+        else "nvidia-smi: " + smi.stderr.strip()
+    name = torch.cuda.get_device_name(0)
+    phase("device", f"{name}, {torch.cuda.device_count()} device(s), "
+          f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(smi_line, flush=True)
+
+    # ---- build ---------------------------------------------------------
+    from carpedeam_tpu_torch import _build, native
+    kb = _build.build_kernels()
+    phase("build", f"CUDA kernels (one nvcc call) {kb.seconds:.2f} s "
+          f"{'(cached)' if kb.cached else ''} -> {kb.path}")
+    for line in kb.log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"    ptxas: {line.strip()}", flush=True)
+    nb = native.build()
+    phase("build", f"host C++ library {nb.seconds:.2f} s "
+          f"{'(cached)' if nb.cached else ''} -> {nb.path}")
+
+    # ---- kernels -------------------------------------------------------
+    import numpy as np
+
+    from carpedeam_tpu_torch import utils, workload
+    from carpedeam_tpu_torch.damage import DamageModel
+    from carpedeam_tpu_torch.params import Params
+    utils.set_verbosity(2)
+    reads, (sub5p, sub3p) = workload.generate(1, 120_000, coverage=20.0)
+    damage = DamageModel.from_rates(sub5p, sub3p)
+    params = Params()
+    phase("kernels", f"workload: {len(reads)} reads, "
+          f"{reads.total_residues} residues")
+    rows = check_kernels(damage, params, "cuda", reads)
+
+    # ---- assemble ------------------------------------------------------
+    from carpedeam_tpu_torch.pipeline import ancient_assemble, nuclassemble
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    timer = utils.StageTimer()
+    _build.reset_launch_counts()
+    utils.coverage_reset()
+    t0 = time.perf_counter()
+    rep = ancient_assemble(reads, params, damage,
+                           out_fasta=os.path.join(out_dir, "assemble.fasta"),
+                           device="cuda", timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    coverage = utils.coverage_summary()
+    stages: dict[str, float] = {}
+    for stage, secs in timer.summary().items():
+        key = stage.rsplit("_", 1)[0] if stage[-1].isdigit() else stage
+        stages[key] = stages.get(key, 0.0) + secs
+    phase("assemble", f"{len(rep)} contigs in {wall:.2f} s; stage seconds "
+          + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    phase("assemble", "coverage " + json.dumps(coverage))
+    phase("assemble", "launches " + json.dumps(launches))
+    check(len(rep) > 0, "no contigs")
+    check(all(int(rep.lengths[i]) >= params.min_contig_len
+              for i in range(len(rep))), "contig shorter than the minimum")
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} was not launched by the main path")
+    for stage in ("rescorediagonal", "correction", "extension_scoring"):
+        d = coverage.get(stage)
+        check(d is not None and d["device"] > 0,
+              f"stage {stage} ran no records on the card")
+
+    # ---- repeat --------------------------------------------------------
+    sl = reads.select(np.arange(15_000))
+    p2 = params.copy(num_iterations=2, num_iterations_reads=1,
+                     min_contig_len=0)
+    fastas = []
+    for run, dev in enumerate(("cuda", "cuda", "cpu")):
+        t0 = time.perf_counter()
+        if run == 1:
+            # the profiler slows the host side many times over, so the
+            # busy share is taken against the first, unprofiled run
+            with device_profile() as prof:
+                res, _, _ = nuclassemble(sl, p2, damage, device=dev)
+            phase("repeat", f"profiled cuda run: device busy "
+                  f"{prof['device_ms']:.3f} ms = "
+                  f"{100 * prof['device_ms'] / 1e3 / wall0:.3f}% of the "
+                  f"unprofiled run's {wall0:.3f} s (profiled wall "
+                  f"{prof['wall_s']:.3f} s); top device ops "
+                  + json.dumps(prof["top"]))
+        else:
+            res, _, _ = nuclassemble(sl, p2, damage, device=dev)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+        if run == 0:
+            wall0 = time.perf_counter() - t0
+        res.headers = [f"{i} len:{int(res.lengths[i])}"
+                       for i in range(len(res))]
+        path = os.path.join(out_dir, f"repeat_{len(fastas)}_{dev}.fasta")
+        res.to_fasta(path)
+        with open(path, "rb") as fh:
+            fastas.append(fh.read())
+        phase("repeat", f"{dev}: {len(res)} sequences, "
+              f"{len(fastas[-1])} FASTA bytes")
+    check(fastas[0] == fastas[1], "two CUDA runs wrote different FASTA")
+    check(fastas[0] == fastas[2], "CUDA and CPU runs wrote different FASTA")
+    phase("repeat", "FASTA byte-identical across the two CUDA runs and the "
+          "CPU run")
+
+    kernels = []
+    for kname, k in _build.KERNELS.items():
+        cases = rows[kname]["cases"]
+        main_case = cases[0]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": k.source,
+            "replaces": k.replaces, "launches": launches[kname],
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": main_case["ms"], "wrapper_ms": main_case["wrapper_ms"],
+            "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"],
+            "library_ms": main_case["library_ms"],
+            "cases": cases})
+    phase("done", f"all phases passed in {time.perf_counter() - T0:.1f} s")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

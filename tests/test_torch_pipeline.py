@@ -1,0 +1,135 @@
+"""The whole slice: the port's ancient_assemble on the CPU (the kernels'
+plain PyTorch versions) writes the same FASTA bytes as the JAX package,
+against its host path over 10 iterations (safe and --unsafe) and against
+its Pallas path (interpret mode) over a short run; plus the port's import
+and device rules."""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import carpedeam_tpu.pipeline as JP
+from carpedeam_tpu_torch import convert, pipeline, workload
+from carpedeam_tpu_torch.params import Params
+from torch_port_util import params_pair, reads_world, same_seqs
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("unsafe", [False, True], ids=["safe", "unsafe"])
+def test_ancient_assemble_fasta_matches_jax_host_path(tmp_path, unsafe):
+    db, jdb, jdm, tdm = reads_world(51, 3000)
+    jp, tp = params_pair(use_device="0", ancient_unsafe=unsafe,
+                         min_contig_len=100)
+    JP.ancient_assemble(jdb, jp, jdm, out_fasta=str(tmp_path / "jax.fa"))
+    rep = pipeline.ancient_assemble(db, tp, tdm,
+                                    out_fasta=str(tmp_path / "port.fa"),
+                                    device="cpu")
+    assert len(rep) > 5
+    ref = (tmp_path / "jax.fa").read_bytes()
+    assert (tmp_path / "port.fa").read_bytes() == ref
+
+
+def test_nuclassemble_matches_jax_pallas_path():
+    db, jdb, jdm, tdm = reads_world(52, 1500)
+    jp, tp = params_pair(use_device="pallas", num_iterations=4,
+                         num_iterations_reads=2, min_contig_len=0)
+    ref, ref_cyc, _ = JP.nuclassemble(jdb, jp, jdm)
+    mine, cyc, _ = pipeline.nuclassemble(db, tp, tdm, device="cpu")
+    assert len(mine) > 100
+    assert cyc == ref_cyc
+    assert same_seqs(mine, ref)
+
+
+def test_checkpoints_resume_to_the_same_result(tmp_path):
+    db, _, _, tdm = reads_world(53, 800)
+    p = Params(num_iterations=3, num_iterations_reads=2, min_contig_len=0)
+    a, _, _ = pipeline.nuclassemble(db, p, tdm, tmp_dir=str(tmp_path),
+                                    device="cpu")
+    b, _, _ = pipeline.nuclassemble(db, p, tdm, tmp_dir=str(tmp_path),
+                                    device="cpu")
+    assert same_seqs(a, b)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, %r)\n"
+        "import chip_smoke\n"
+        "import carpedeam_tpu_torch.cli, carpedeam_tpu_torch.convert\n"
+        "import carpedeam_tpu_torch.pipeline, carpedeam_tpu_torch.workload\n"
+        "from carpedeam_tpu_torch.ops import (correction_cuda, ext_cuda,\n"
+        "    extension_batch, planes, rescore_cuda, window_cuda)\n"
+        "from carpedeam_tpu_torch.stages import linclust\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'carpedeam_tpu' or m.startswith('carpedeam_tpu.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n") % REPO
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=REPO)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    db, _, _, tdm = reads_world(54, 200)
+    p = Params(num_iterations=1, num_iterations_reads=1, min_contig_len=0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pipeline.nuclassemble(db, p, tdm)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pipeline.ancient_assemble(db, p, tdm, device="cuda")
+    out, _, _ = pipeline.nuclassemble(db, p, tdm, device="cpu")
+    assert len(out) > 0
+
+
+def test_cli_runs_on_the_cpu(tmp_path):
+    db, _, _, _ = reads_world(55, 600)
+    fq = tmp_path / "reads.fa"
+    with open(fq, "w") as fh:
+        for i in range(len(db)):
+            fh.write(f">r{i}\n{db.seq_str(i)}\n")
+    out = tmp_path / "out.fa"
+    from carpedeam_tpu_torch import cli
+    rc = cli.main(["nuclassemble", str(fq), str(out), str(tmp_path / "tmp"),
+                   "--device", "cpu", "--num-iterations", "2",
+                   "--num-iter-reads-only", "1", "--min-contig-len", "1",
+                   "-v", "0"])
+    assert rc == 0 and out.read_bytes().startswith(b">0 len:")
+
+
+def test_convert_from_reference_round_trip_and_checks():
+    _, (s5, s3) = workload.generate(56, 10)
+    from carpedeam_tpu.damage import DamageModel as JaxDamageModel
+    from carpedeam_tpu.params import Params as JaxParams
+    jdm = JaxDamageModel.from_rates(s5, s3)
+    arrays = convert.state_arrays(jdm)
+    jp = JaxParams(ancient_unsafe=True, explicit=frozenset({"ancient_unsafe"}))
+    dm, p = convert.from_reference(arrays, dataclasses.asdict(jp))
+    for k in ("fwd", "rev", "fwd_ld", "rev_ld", "sub5p", "sub3p"):
+        assert np.array_equal(getattr(dm, k), getattr(jdm, k)), k
+        assert getattr(dm, k).dtype == getattr(jdm, k).dtype, k
+    assert dataclasses.asdict(p) == dataclasses.asdict(jp)
+    assert p.copy_defaults(ancient_unsafe=False).ancient_unsafe
+    bad = dict(arrays, wtab=arrays["wtab"] + 1)
+    with pytest.raises(ValueError, match="wtab"):
+        convert.from_reference(bad, {})
+    with pytest.raises(ValueError, match="fwd"):
+        convert.from_reference({k: v for k, v in arrays.items()
+                                if k != "fwd"}, {})
+
+
+def test_workload_is_seeded_and_shaped_like_the_reference_example():
+    a, rates = workload.generate(57, 5000)
+    b, _ = workload.generate(57, 5000)
+    assert np.array_equal(a.data, b.data)
+    assert a.lengths.min() >= 35 and a.lengths.max() <= 120
+    assert 45 < a.lengths.mean() < 57
+    assert rates[0].shape == (len(workload.CT5), 12)
+    # 5' terminal C->T damage is visible: T is enriched at position 0
+    first = a.data[a.offsets]
+    assert (first == ord("T")).mean() > (first == ord("C")).mean()
