@@ -135,7 +135,7 @@ KERNELS = {
                    "carpedeam_tpu_torch/csrc/rescore.cu",
                    "carpedeam_tpu/ops/rescore_pallas.py:80"),
         CudaKernel("correction", "cd_correction",
-                   [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+                   [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
                    "carpedeam_tpu_torch/csrc/correction.cu",
                    "carpedeam_tpu/ops/correction_pallas.py:99"),
         CudaKernel("window_identity", "cd_window_identity",

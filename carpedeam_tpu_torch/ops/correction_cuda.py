@@ -194,13 +194,20 @@ def correction_kernel(sym2, rec_rows, rscal, slot_qid, qscal, wtab,
     if sym2.device.type == "cpu":
         return correction_kernel_reference(sym2, rec_rows, rscal, slot_qid,
                                            qscal, wtab, g, rec_tile)
+    for name, t in (("rscal", rscal), ("qscal", qscal), ("wtab", wtab)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             f"stages it in 16-byte copies)")
     L = sym2.shape[1]
     out = torch.empty((nb * g // 4, L), dtype=torch.uint8,
                       device=sym2.device)
+    # scratch: the per-record keep flags (the launch takes the RY gate of
+    # every record in a first pass, which each position tile reads)
+    keep = torch.empty(nb * rec_tile, dtype=torch.uint8, device=sym2.device)
     CORRECTION.launch(sym2.data_ptr(), L, rec_rows.data_ptr(),
                       rscal.data_ptr(), slot_qid.data_ptr(),
                       qscal.data_ptr(), wtab.data_ptr(), nb, g, rec_tile,
-                      out.data_ptr(),
+                      keep.data_ptr(), out.data_ptr(),
                       torch.cuda.current_stream(sym2.device).cuda_stream)
     return out
 

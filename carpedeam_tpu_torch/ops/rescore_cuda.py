@@ -54,6 +54,9 @@ def rescore_pairs(code2: torch.Tensor, sym2: torch.Tensor,
     _check_inputs(code2, sym2, lengths, pairs)
     if code2.device.type == "cpu":
         return rescore_pairs_reference(code2, sym2, lengths, pairs)
+    if code2.data_ptr() % 16 or sym2.data_ptr() % 16:
+        raise ValueError("code2 and sym2 must be 16-byte aligned (the "
+                         "kernel reads them in aligned 16-byte words)")
     out = torch.empty((pairs.shape[0], 1), dtype=torch.int32,
                       device=code2.device)
     RESCORE.launch(code2.data_ptr(), sym2.data_ptr(), lengths.data_ptr(),

@@ -7,6 +7,12 @@ Phases, each printing one line with the elapsed seconds:
 
   device    requires a CUDA device; prints the card's name and power limit
   build     builds the CUDA kernels (one nvcc call) and the host C++ library
+  edges     the rescore and correction kernels against their plain versions,
+            bit for bit, on small adversarial inputs made from a numpy seed
+            (row-end windows, invalid candidates, ties, codes >= 4, reverse
+            rows, L not a multiple of 16; slots with 0, 1 and 2 kept records,
+            all 44 classes, tile-crossing records, a full record tile, a
+            -inf weight, records out of slot order)
   kernels   each kernel against its plain PyTorch version on the card, at
             the shapes its driver gives it; kernel times are device times
             from torch.profiler with the L2 cache flushed before each launch
@@ -85,30 +91,46 @@ def cuda_ms(fn, reps: int) -> float:
 L2_FLUSH_BYTES = 128 << 20      # over twice the H100's 50 MB L2
 
 
-def kernel_ms(fn, kernel: str, reps: int) -> float:
-    """Mean device milliseconds per launch of the CUDA kernel named
-    `kernel` over `reps` calls of `fn`, from torch.profiler.  Before each
-    call a 128 MiB write flushes the L2 cache, so every launch reads its
-    inputs from HBM; the flush's own kernel is not counted."""
+# device kernels each wrapper call launches, by name (the correction
+# wrapper launches its gate kernel, then the kernel)
+DEVICE_KERNELS = {"correction": ("correction_gate", "correction_kernel")}
+
+
+def kernel_ms(fn, kernels: tuple[str, ...], reps: int) -> float:
+    """Mean device milliseconds per call of `fn` spent in the CUDA kernels
+    whose names contain one of `kernels` (each call launches each once),
+    over `reps` calls, from torch.profiler.  Before each call a 128 MiB
+    write flushes the L2 cache, so every call reads its inputs from HBM;
+    the flush's own kernel is not counted."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    us, n = 0.0, 0
-    for e in prof.key_averages():
-        if kernel in e.key:
-            us += getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0.0))
-            n += e.count
-    check(n > 0 and us > 0, f"the profiler saw no launch of {kernel}")
-    return us / n / 1e3
+    # the profiler now and then loses a session's kernel records: a
+    # session that saw fewer than half the calls' launches of any of the
+    # kernels is taken again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        per_name = {k: [0.0, 0] for k in kernels}
+        for e in prof.key_averages():
+            for k in kernels:
+                if k in e.key:
+                    per_name[k][0] += getattr(
+                        e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+                    per_name[k][1] += e.count
+        if all(2 * n >= reps for _, n in per_name.values()):
+            # each kernel's mean time per launch, summed over the kernels
+            return sum(us / n for us, n in per_name.values()) / 1e3
+    seen = ", ".join(f"{k} {n}" for k, (_, n) in per_name.items())
+    raise SmokeFailure(f"the profiler saw under half of {reps} launches "
+                       f"({seen}) three times")
 
 
 def sync() -> None:
@@ -277,8 +299,8 @@ def check_kernels(damage, params, device, reads) -> dict:
     cap = kernel_inputs(damage, params, device, reads)
     rows = {}
 
-    def record(name, case, fn, ref, nbytes, ops, err):
-        ms = kernel_ms(fn, f"{name}_kernel", 20)
+    def record(name, case, fn, ref, nbytes, ops, err, note=""):
+        ms = kernel_ms(fn, DEVICE_KERNELS.get(name, (f"{name}_kernel",)), 20)
         wrapper_ms = cuda_ms(fn, 20)
         plain_ms = cuda_ms(ref, 3)
         b_ms, b_by = bound(nbytes, ops)
@@ -293,7 +315,7 @@ def check_kernels(damage, params, device, reads) -> dict:
         phase("kernels", f"{name} [{case}] ok: kernel {ms:.4f} ms "
               f"(wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms by {b_by}: {nbytes} bytes, {ops:.0f} "
-              f"operations; max_abs_err {err})")
+              f"operations{note}; max_abs_err {err})")
 
     # ---- kernel 1: rescore (exact integers) ---------------------------
     for lo, width in ((0, 128), (128, 512), (512, 2048)):
@@ -321,16 +343,22 @@ def check_kernels(damage, params, device, reads) -> dict:
         check(torch.equal(out, ref), f"correction differs at {width}")
         sym2, rec_rows, rscal, slot_qid, qscal, wtab, g, rt = args
         nbytes = _correction_bytes(*args, out)
-        # operations: per (slot, position) cell that an aligned record
-        # covers, 44 classes x 4 bases x (2 mul + 2 add) plus the 4-base
-        # prior (mul + add); uncovered cells keep their base unread
-        ops = _correction_cells(rscal, g, rt) * (44 * 4 * 4 + 4 * 2)
+        # operations: per (slot, position) cell with coverage >= 2, each
+        # class with a count (F or R non-zero) x 4 bases x (2 mul + 2 add),
+        # plus the 4-base prior (mul + add); a cell below 2 keeps its base
+        # without a sum.  The dense count, 44 classes for every cell an
+        # aligned record covers (712 operations each), is printed beside
+        # it: a kernel that skips zero classes would seem to beat that one.
+        ops = _correction_ops(*args)
+        ops_dense = _correction_cells(rscal, g, rt) * (44 * 4 * 4 + 4 * 2)
         record("correction", f"L={sym2.shape[1]} "
                f"blocks={slot_qid.numel() // g} "
                f"G={g} R={rt}",
                lambda: correction_cuda.correction_kernel(*args),
                lambda: correction_cuda.correction_kernel_reference(*args),
-               nbytes, ops, 0)
+               nbytes, ops, 0,
+               note=f" (dense count: {ops_dense:.0f}, bound "
+                    f"{bound(nbytes, ops_dense)[0]:.4f} ms)")
 
     # ---- kernel 3: window identity (exact integers) -------------------
     for lo, width in ((0, 128), (128, 512)):
@@ -429,6 +457,229 @@ def _correction_cells(rscal, g: int, rec_tile: int) -> float:
     return float(torch.unique(cells).numel())
 
 
+def _correction_hits(sym2, rec_rows, rscal, slot_qid, qscal, wtab,
+                     g: int, rec_tile: int):
+    """What the correction kernel counts on these inputs, found apart from
+    its plain version: (cell, class) of every counted record column (an
+    aligned column of a kept record of a slot, class 0-43; cell = global
+    slot * L + position) and the global slot of every kept record."""
+    import torch
+
+    from carpedeam_tpu_torch.ops.correction_cuda import _acgt_code
+    L = sym2.shape[1]
+    dev = sym2.device
+    r = rscal.to(torch.int64)
+    slot = r[:, 6]
+    glob = torch.arange(r.shape[0], device=dev) // rec_tile * g + slot
+    idx = torch.nonzero((r[:, 5] != 0) & (slot >= 0) & (slot < g)).flatten()
+    pos = torch.arange(L, device=dev)[None, :]
+    cells, classes, kept = [], [], []
+    for lo in range(0, idx.numel(), 1 << 15):
+        i = idx[lo:lo + (1 << 15)]
+        qstart, tstart, alen, tlen, smin = (r[i, k:k + 1] for k in range(5))
+        q = sym2[slot_qid.to(torch.int64)[glob[i]]]
+        t = sym2[rec_rows.to(torch.int64)[i]]
+        t = torch.gather(t, 1, (pos + (tstart - qstart) % L) % L)
+        in_aln = (pos >= qstart) & (pos < qstart + alen)
+        ct_q = (q == ord("C")) | (q == ord("T"))
+        ct_t = (t == ord("C")) | (t == ord("T"))
+        keep = (in_aln & (ct_q == ct_t)).sum(1, keepdim=True) >= smin
+        t_real = tstart + pos - qstart
+        layer = torch.where(t_real < 5, t_real, 5)
+        from_end = t_real - (tlen - 5)
+        layer = torch.where(from_end >= 0, 6 + from_end, layer)
+        cls = _acgt_code(t.to(torch.int64)) * 11 + layer
+        ri, pi = (in_aln & keep & (cls >= 0) & (cls < 44)).nonzero(
+            as_tuple=True)
+        cells.append(glob[i][ri] * L + pi)
+        classes.append(cls[ri, pi])
+        kept.append(glob[i][keep[:, 0]])
+    cat = (lambda xs: torch.cat(xs) if xs else
+           torch.zeros(0, dtype=torch.int64, device=dev))
+    return cat(cells), cat(classes), cat(kept)
+
+
+def _correction_ops(*args) -> float:
+    """Operations these inputs need: per cell with coverage >= 2, 16 per
+    class with a count and 8 for the prior."""
+    import torch
+    cell, cls, _ = _correction_hits(*args)
+    ucell, tot = torch.unique(cell, return_counts=True)
+    busy = ucell[tot >= 2]
+    pair_cell = torch.unique(cell * 64 + cls) // 64
+    n_cls = int(torch.isin(pair_cell, busy).sum().item())
+    return float(16 * n_cls + 8 * busy.numel())
+
+
+def _plane_rows(rng, n: int, L: int, genome, lo_len: int, hi_len: int,
+                noise: float):
+    """(code rows, symbol rows, offsets, lengths) of n rows read from a
+    code genome at random offsets, with a `noise` share of codes >= 4
+    (symbol N) and lengths lo_len..hi_len."""
+    import numpy as np
+    off = rng.integers(0, len(genome) - L, n)
+    code = np.stack([genome[o:o + L] for o in off]).astype(np.uint8)
+    bad = rng.random(code.shape) < noise
+    code[bad] = rng.integers(4, 256, int(bad.sum()))
+    sym = np.frombuffer(b"ACGT", dtype=np.uint8)[np.minimum(code, 3)]
+    sym = np.where(code < 4, sym, ord("N")).astype(np.uint8)
+    return code, sym, off, rng.integers(lo_len, hi_len + 1, n)
+
+
+def _rescore_edges(rng, L: int, n: int, P: int, flat: bool, device):
+    """Planes and pairs that reach the rescore kernel's edges: lengths
+    equal to L and beyond it (windows that wrap to the row start), codes
+    >= 4, reverse query rows, invalid candidates (dist >= length), windows
+    that end at the row end, and, with `flat` (identical rows of one code
+    at L > 32768, where both candidates are valid), s_pos == s_neg ties."""
+    import numpy as np
+    import torch
+    genome = rng.integers(0, 4, 4 * L).astype(np.uint8)
+    if flat:
+        genome[:] = 0
+    code, sym, off, lens = _plane_rows(rng, 2 * n, L, genome, 1, L,
+                                       0.0 if flat else 0.03)
+    lens = lens[:n]
+    lens[: n // 4] = L
+    if not flat:
+        lens[n // 4: n // 4 + 3] = L + rng.integers(1, 40, 3)
+    else:
+        lens[:] = L
+    qidx = rng.integers(0, n, P)
+    tidx = rng.integers(0, n, P)
+    rev = rng.random(P) < 0.5
+    qrow = qidx + np.where(rev, n, 0)
+    diag = ((off[tidx] - off[qrow]) % 65536).astype(np.int64)
+    kind = rng.integers(0, 6, P)
+    tl, ql = lens[tidx], lens[qidx]
+    diag = np.where(kind == 1, rng.integers(0, 65536, P), diag)
+    # dist == length (invalid) and length - 1 (a window of one column at
+    # the row end), for each candidate
+    diag = np.where(kind == 2, (65536 - tl + rng.integers(0, 2, P)) % 65536,
+                    diag)
+    diag = np.where(kind == 3, ql - rng.integers(0, 2, P), diag)
+    if flat:
+        diag = np.where(kind < 3, 32768, 32768 + rng.integers(-200, 200, P))
+    pairs = np.stack([qidx.astype(np.int64) | np.where(rev, -(1 << 31), 0),
+                      tidx, diag], axis=1).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (code, sym, lens.astype(np.int32), pairs))
+
+
+def _correction_edges(rng, L: int, g: int, rt: int, nb: int, wtab,
+                      full: bool, spans: bool, device):
+    """Correction blocks that reach the kernel's edges: slots with 0, 1, 2
+    and many records (some dropped by the RY gate, some with no use flag),
+    records near both target ends (all 11 damage layers), queries with
+    was_ext, a full record tile with `full`, and with `spans` records that
+    cross 128-position tile boundaries."""
+    import numpy as np
+    import torch
+    genome = rng.integers(0, 4, 4 * L + 64).astype(np.uint8)
+    n = 64
+    _, sym, _, _ = _plane_rows(rng, 2 * n, L, genome, 1, L, 0.0)
+    sym[rng.random(sym.shape) < 0.1] = np.frombuffer(
+        b"ACGT", dtype=np.uint8)[rng.integers(0, 4, 1)]
+    rscal = np.zeros((nb * rt, 8), np.int32)
+    rscal[:, 6] = g                                    # no slot
+    rows = np.zeros(nb * rt, np.int32)
+    qscal = np.zeros((nb * g, 8), np.int32)
+    slot_qid = rng.integers(0, 2 * n, nb * g).astype(np.int32)
+    qscal[:, 0] = rng.integers(1, L + 1, nb * g)
+    qscal[::5, 0] = L
+    qscal[:, 1] = rng.random(nb * g) < 0.2
+    for b in range(nb):
+        counts = rng.choice([0, 0, 1, 1, 2, 2, 3, 5, 9], g)
+        counts[:3] = (0, 1, 2)
+        budget = rt if (full and b == 0) else rt - int(rng.integers(0, 4))
+        while counts.sum() > budget:
+            counts[rng.integers(3, g)] //= 2
+        if full and b == 0:
+            counts[g - 1] += budget - counts.sum()
+        i = b * rt
+        for s, c in enumerate(counts):
+            qlen = int(qscal[b * g + s, 0])
+            for _ in range(int(c)):
+                if spans:
+                    qs = 128 * int(rng.integers(1, max(2, qlen // 128 + 1))) \
+                        - int(rng.integers(1, 60))
+                else:
+                    qs = int(rng.integers(-3, max(1, qlen)))
+                alen = int(rng.integers(1, L - max(qs, 0) + 1))
+                if spans:
+                    alen = min(alen, int(rng.integers(100, 300)))
+                ts = int(rng.integers(0, 9))
+                tl = ts + alen + int(rng.integers(-3, 9))
+                gate = int(rng.integers(0, 3))   # 0 any, 1 loose, 2 strict
+                smin = (0, alen // 2, alen + 1)[gate]
+                use = int(rng.random() < 0.9)
+                rscal[i] = (qs, ts, alen, tl, smin, use, s,
+                            int(rng.random() < 0.4) & use)
+                rows[i] = rng.integers(0, 2 * n)
+                i += 1
+    return (*(torch.from_numpy(a).to(device) for a in
+              (sym, rows, rscal, slot_qid, qscal,
+               np.ascontiguousarray(wtab))), g, rt)
+
+
+def check_edges(damage, device) -> None:
+    """Each redesigned kernel against its plain version, bit for bit, on
+    small adversarial inputs made from a numpy seed."""
+    import numpy as np
+    import torch
+
+    from carpedeam_tpu_torch.ops import correction_cuda, rescore_cuda
+    rng = np.random.default_rng(20261017)
+    for L, n, P, flat in ((100, 48, 6000, False), (128, 48, 6000, False),
+                          (33000, 6, 64, True)):
+        args = _rescore_edges(rng, L, n, P, flat, device)
+        out = rescore_cuda.rescore_pairs(*args)
+        ref = rescore_cuda.rescore_pairs_reference(*args)
+        sync()
+        check(torch.equal(out, ref), f"rescore_pairs edge case L={L} "
+              f"differs from its plain version")
+        v = ref[:, 0].to(torch.int64) & 0xFFFFFFFF
+        phase("edges", f"rescore_pairs L={L} P={P} equal: "
+              f"{int(((v & 0xFFFF) == 0).sum())} without a hit, "
+              f"{int((v >> 31).sum())} positive wins")
+    wtab = correction_cuda.correction_wtab(damage)
+    inf_tab = wtab.copy()
+    inf_tab[7, 1] = -np.inf
+    cases = (("L=128 full tile", 128, 128, 512, 3, wtab, True, False),
+             ("L=128 -inf weight (dense path)", 128, 128, 512, 2, inf_tab,
+              True, False),
+             ("L=200 two tiles", 200, 32, 128, 3, wtab, False, False),
+             ("L=4096 tile spans", 4096, 32, 32, 3, wtab, False, True),
+             ("L=128 records out of slot order", 128, 128, 512, 2, wtab,
+              False, False))
+    for name, L, g, rt, nb, tab, full, spans in cases:
+        args = list(_correction_edges(rng, L, g, rt, nb, tab, full, spans,
+                                      device))
+        if "order" in name:
+            perm = torch.randperm(rt, generator=torch.Generator().manual_seed(
+                1)).to(args[1].device)
+            args[1] = args[1].view(nb, rt)[:, perm].reshape(-1).contiguous()
+            args[2] = args[2].view(nb, rt, 8)[:, perm].reshape(-1, 8) \
+                .contiguous()
+        out = correction_cuda.correction_kernel(*args)
+        ref = correction_cuda.correction_kernel_reference(*args)
+        sync()
+        check(torch.equal(out, ref), f"correction edge case {name} differs "
+              f"from its plain version")
+        _, cls, kept = _correction_hits(*args)
+        per_slot = torch.bincount(kept, minlength=nb * g)
+        check(all((per_slot == k).any().item() for k in (0, 1, 2)),
+              f"correction edge case {name} lacks a slot with 0, 1 or 2 "
+              f"kept records")
+        n_cls = torch.unique(cls).numel()
+        if full:
+            check(n_cls == 44, f"correction edge case {name} counts "
+                  f"{n_cls} of the 44 classes")
+        phase("edges", f"correction {name} equal: {n_cls} classes, "
+              f"{int(kept.numel())} kept records, max per slot "
+              f"{int(per_slot.max())}")
+
+
 def _rescore_need(code2, lens, pairs, out) -> tuple[float, int]:
     """(window columns visited, bytes needed) of the rescore kernel on
     these inputs: the code bytes of both candidate windows and the symbol
@@ -518,8 +769,10 @@ def main() -> int:
     phase("build", f"CUDA kernels (one nvcc call) {kb.seconds:.2f} s "
           f"{'(cached)' if kb.cached else ''} -> {kb.path}")
     for line in kb.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"    ptxas: {line.strip()}", flush=True)
+        if "entry function" in line:
+            print(f"    ptxas: {line.split(chr(39))[1]}", flush=True)
+        elif "registers" in line or "spill" in line:
+            print(f"    ptxas:   {line.strip()}", flush=True)
     nb = native.build()
     phase("build", f"host C++ library {nb.seconds:.2f} s "
           f"{'(cached)' if nb.cached else ''} -> {nb.path}")
@@ -536,6 +789,7 @@ def main() -> int:
     params = Params()
     phase("kernels", f"workload: {len(reads)} reads, "
           f"{reads.total_residues} residues")
+    check_edges(damage, "cuda")
     rows = check_kernels(damage, params, "cuda", reads)
 
     # ---- assemble ------------------------------------------------------

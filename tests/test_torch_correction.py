@@ -11,6 +11,7 @@ import carpedeam_tpu.ops.correction_pallas as CP
 from carpedeam_tpu.stages.rescorediagonal import \
     rescorediagonal as jax_rescorediagonal
 from carpedeam_tpu_torch.aligndb import AlnDB
+from carpedeam_tpu_torch.damage import DamageModel
 from carpedeam_tpu_torch.kmer.matcher import kmermatcher
 from carpedeam_tpu_torch.ops import correction_cuda as C
 from carpedeam_tpu_torch.ops.planes import device_planes
@@ -164,3 +165,66 @@ def test_kernel_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):
         C.correction_kernel(sym, i32(1024), i32(1024, 8), i32(4),
                             i32(4, 8), wtab, 4, 1024)
+
+
+@pytest.mark.parametrize("rate", [0.0, 1.0])
+def test_correction_wtab_is_finite(rate):
+    """The kernel's sparse class sums are exact only for finite weights
+    (0 * inf is NaN): the table is finite at both ends of the rate range,
+    since every probability is clipped to 1e-3 before its log."""
+    rows = np.full((5, 12), rate)
+    wtab = C.correction_wtab(DamageModel.from_rates(rows, rows))
+    assert wtab.shape == (48, 16) and wtab.dtype == np.float32
+    assert np.isfinite(wtab).all()
+
+
+def _sparse_blocks(seed: int, L: int, g: int, rt: int, nb: int):
+    """Blocks in which most slots hold 0 or 1 record, so most (slot,
+    position) cells have coverage below 2: (kernel arguments, share of the
+    block cells with coverage below 2)."""
+    rng = np.random.default_rng(seed)
+    n = 24
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    sym = bases[rng.integers(0, 4, (2 * n, L))]
+    rscal = np.zeros((nb * rt, 8), np.int32)
+    rscal[:, 6] = g
+    rows = rng.integers(0, 2 * n, nb * rt).astype(np.int32)
+    qscal = np.zeros((nb * g, 8), np.int32)
+    qscal[:, 0] = rng.integers(L // 2, L + 1, nb * g)
+    qscal[:, 1] = rng.random(nb * g) < 0.2
+    cover = np.zeros((nb * g, L), np.int32)
+    for b in range(nb):
+        i = b * rt
+        for s in range(g):
+            for _ in range(int(rng.choice(3, p=[0.45, 0.4, 0.15]))):
+                if i == (b + 1) * rt:
+                    break
+                qs = int(rng.integers(0, L - 8))
+                alen = int(rng.integers(8, L - qs + 1))
+                ts = int(rng.integers(0, 6))
+                rscal[i] = (qs, ts, alen, ts + alen + int(rng.integers(0, 6)),
+                            0, 1, s, int(rng.random() < 0.5))
+                cover[b * g + s, qs:qs + alen] += 1
+                i += 1
+    slot_qid = rng.integers(0, 2 * n, nb * g).astype(np.int32)
+    return (sym, rows, rscal, slot_qid, qscal), float((cover < 2).mean())
+
+
+@pytest.mark.parametrize("seed", [41, 42])
+def test_plain_matches_pallas_where_most_cells_are_uncovered(seed):
+    """Cells with coverage below 2 keep their base without a sum: the plain
+    version and the Pallas kernel (interpret mode) agree on blocks made
+    mostly of such cells."""
+    _, tdm = damage_pair(*profile_rates())
+    L, g, rt, nb = 128, 32, 64, 2
+    (sym, rows, rscal, slot_qid, qscal), low = _sparse_blocks(seed, L, g,
+                                                               rt, nb)
+    assert low > 0.5
+    wtab = C.correction_wtab(tdm)
+    mine = C.correction_kernel(*(torch.from_numpy(a) for a in
+                                 (sym, rows, rscal, slot_qid, qscal, wtab)),
+                               g, rt)
+    ref = CP._correction_pallas_device(
+        *(jnp.asarray(a) for a in (sym, rows, rscal, slot_qid, qscal, wtab)),
+        nb=nb, max_len=L, interpret=True, g=g, rec_tile=rt)
+    assert np.array_equal(mine.numpy(), np.asarray(ref).view(np.uint8))
