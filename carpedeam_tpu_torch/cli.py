@@ -47,7 +47,8 @@ def main(argv=None) -> int:
         sp.add_argument("--device", choices=("cuda", "cpu"),
                         default="cuda",
                         help="run the CUDA kernels (default) or their "
-                             "plain PyTorch versions on the CPU")
+                             "plain PyTorch versions on the CPU; not read "
+                             "under --use-device 0 (the host oracles)")
         add_flags(sp)
     args = parser.parse_args(argv)
     try:
@@ -68,7 +69,8 @@ def _dispatch(args) -> int:
     print(f"[carpedeam-tpu-torch] {len(reads)} reads "
           f"({reads.total_residues} residues) in {time.time()-t0:.1f}s")
     damage = DamageModel.load(params.ancient_damage_path)
-    with _profiler(os.environ.get("CARPEDEAM_PROFILE_DIR"), args.device):
+    with _profiler(os.environ.get("CARPEDEAM_PROFILE_DIR"),
+                   "cpu" if params.use_device == "0" else args.device):
         if args.command == "ancient_assemble":
             from .pipeline import ancient_assemble
             rep = ancient_assemble(

@@ -21,7 +21,8 @@ WINDOW = KERNELS["window_identity"]
 
 def check_record_inputs(sym2, rows, scal, ncols):
     """Validate the (plane, row indices, scalars) inputs of the per-record
-    window kernels; raise on anything the kernels do not take."""
+    window kernels; raise on anything the kernels do not take (on the
+    card also a plane or scalar array off a 16-byte boundary)."""
     dev = sym2.device
     if sym2.dtype != torch.uint8 or sym2.dim() != 2:
         raise TypeError("sym2 must be a (2N, L) uint8 plane")
@@ -38,6 +39,9 @@ def check_record_inputs(sym2, rows, scal, ncols):
         raise ValueError(f"scal must be (n, {ncols}) int32")
     if not sym2.is_contiguous():
         raise ValueError("sym2 must be contiguous")
+    if dev.type == "cuda" and (sym2.data_ptr() % 16 or scal.data_ptr() % 16):
+        raise ValueError("sym2 and scal must be 16-byte aligned (the kernels "
+                         "read them in aligned 16-byte words)")
 
 
 def window_identity(sym2: torch.Tensor, qrow: torch.Tensor,

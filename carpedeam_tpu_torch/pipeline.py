@@ -8,12 +8,15 @@ the kmermatcher runs on the host (native C++) while the sequence planes
 stream to the device; rescorediagonal, correction and the read-phase
 extension scoring run the CUDA kernels (ops/*_cuda.py) on `device`
 ("cuda", the default), or the same drivers with the kernels' plain
-PyTorch versions when the caller passes device="cpu".
+PyTorch versions when the caller passes device="cpu".  `--use-device 0`
+runs the host oracles instead, as the JAX package does
+(`_pick_stage_impls`).
 """
 from __future__ import annotations
 
 import os
 import time
+from functools import partial
 
 import numpy as np
 
@@ -22,10 +25,12 @@ from .io.seqdb import SeqDB
 from .kmer.matcher import kmermatcher
 from .ops.correction_cuda import correction_cuda
 from .ops.rescore_cuda import rescorediagonal_cuda
-from .params import Params, parse_byte_size
+from .params import ParamError, Params, parse_byte_size
 from .stages.contig_merge import contig_merge
+from .stages.correction import correction
 from .stages.cyclecheck import cyclecheck
 from .stages.read_assembly import read_assembly
+from .stages.rescorediagonal import rescorediagonal
 from .utils import StageTimer, bucket_len, resolve_device
 
 
@@ -75,16 +80,45 @@ def _host_kmermatcher(params: Params):
     return km
 
 
+def _pick_stage_impls(use_device: str, device):
+    """(rescore_fn, correction_fn, device or None) for `--use-device`, the
+    counterpart of carpedeam_tpu/pipeline.py::_pick_stage_impls.
+
+    "0" runs the host oracles (native C++): no planes, no card, so it
+    runs on a machine without one.  "auto" and "pallas" run the CUDA
+    kernels on `device` (their plain PyTorch versions when `device` is
+    the CPU).  "1" (the JAX package's XLA tensor programs) and "mesh"
+    (its sharded stages) have no implementation in the port yet and
+    raise rather than run another one in their place."""
+    if use_device == "0":
+        return rescorediagonal, correction, None
+    if use_device == "1":
+        raise ParamError("--use-device 1 (the XLA tensor programs of "
+                         "ops/rescore_tpu.py and ops/correction_tpu.py) has "
+                         "no implementation in the PyTorch port yet "
+                         "(ROADMAP Queue 1 item 4); use 0, auto or pallas")
+    if use_device == "mesh":
+        raise ParamError("--use-device mesh (the sharded stages of "
+                         "parallel/mesh.py) has no implementation in the "
+                         "PyTorch port yet (ROADMAP Queue 1 item 5); use 0, "
+                         "auto or pallas")
+    dev = resolve_device(device)
+    return (partial(rescorediagonal_cuda, device=dev),
+            partial(correction_cuda, device=dev), dev)
+
+
 def nuclassemble(reads: SeqDB, params: Params, damage: DamageModel,
                  tmp_dir: str | None = None, progress=None, device="cuda",
                  timer: StageTimer | None = None):
     """The inner assembly loop (data/nuclassemble.sh:97-233).
 
     Returns (result SeqDB, cycle_all keys set, source SeqDB).  `device`
-    is "cuda" (default; raises without a card) or "cpu"; `timer`
+    is "cuda" (default; raises without a card) or "cpu", and is not read
+    under `params.use_device == "0"` (the host oracles); `timer`
     (optional) collects the per-stage wall times.
     """
-    dev = resolve_device(device)
+    rescore_fn, correction_fn, dev = _pick_stage_impls(params.use_device,
+                                                       device)
     if tmp_dir:
         # key the checkpoint dir by the parameter + input fingerprint
         # (par.hashParameter, GuidedNuclassembler.cpp:106-110): re-running
@@ -100,8 +134,9 @@ def nuclassemble(reads: SeqDB, params: Params, damage: DamageModel,
     def _planes_prefetch(db):
         """Start the per-iteration plane pack + H2D before the (host)
         kmermatcher runs; the copy overlaps the k-mer scan and
-        `_shared_from` below collects the finished planes."""
-        if not len(db):
+        `_shared_from` below collects the finished planes.  The host
+        oracles take no planes."""
+        if dev is None or not len(db):
             return None
         from .ops.planes import PlanesPrefetch
         # plane width is capped at 512: the short-read bulk stays device-
@@ -166,9 +201,8 @@ def nuclassemble(reads: SeqDB, params: Params, damage: DamageModel,
         seq_id = params.seq_id_thr if read_phase \
             else params.corr_contig_seq_id
         with timer.time(f"rescorediagonal_{step}"):
-            aln = rescorediagonal_cuda(cur, pref, seq_id, params.eval_thr,
-                                       params.aln_len_thr, device=dev,
-                                       **shared)
+            aln = rescore_fn(cur, pref, seq_id, params.eval_thr,
+                             params.aln_len_thr, **shared)
         if read_phase:
             ext_pro = None
             corr_shared = None
@@ -180,10 +214,10 @@ def nuclassemble(reads: SeqDB, params: Params, damage: DamageModel,
                     # the extension stage's first device pass dispatches
                     # against the derived planes while the corrected
                     # bytes still stream to the host
-                    corr_fin, corr_shared = correction_cuda(
+                    corr_fin, corr_shared = correction_fn(
                         cur, aln, damage, params.corr_reads_ry_seq_id,
                         params.seq_id_thr, return_planes=True, defer=True,
-                        device=dev, **shared)
+                        **shared)
                     if corr_shared is not None \
                             and not params.ancient_unsafe:
                         from .ops.extension_batch import ext_prologue
@@ -192,9 +226,9 @@ def nuclassemble(reads: SeqDB, params: Params, damage: DamageModel,
                                                corr_shared["lengths"])
                     corr = corr_fin()
                 else:
-                    corr = correction_cuda(cur, aln, damage,
-                                           params.corr_reads_ry_seq_id,
-                                           params.seq_id_thr, device=dev)
+                    corr = correction_fn(cur, aln, damage,
+                                         params.corr_reads_ry_seq_id,
+                                         params.seq_id_thr)
             with timer.time(f"read_assembly_{step}"):
                 # extension scores run over the CORRECTED sequences: the
                 # device-derived corrected planes serve when available,
@@ -213,10 +247,9 @@ def nuclassemble(reads: SeqDB, params: Params, damage: DamageModel,
                                        else _shared_planes(corr)))
         else:
             with timer.time(f"correction_{step}"):
-                corr = correction_cuda(cur, aln, damage,
-                                       params.corr_reads_ry_seq_id,
-                                       params.corr_contig_seq_id,
-                                       device=dev, **shared)
+                corr = correction_fn(cur, aln, damage,
+                                     params.corr_reads_ry_seq_id,
+                                     params.corr_contig_seq_id, **shared)
             with timer.time(f"contig_merge_{step}"):
                 nxt = contig_merge(corr, aln, damage,
                                    params.merge_seq_id_thr,

@@ -7,15 +7,20 @@ Phases, each printing one line with the elapsed seconds:
 
   device    requires a CUDA device; prints the card's name and power limit
   build     builds the CUDA kernels (one nvcc call) and the host C++ library
-  edges     the rescore and correction kernels against their plain versions,
-            bit for bit, on small adversarial inputs made from a numpy seed
+  edges     all four kernels against their plain versions, bit for bit, on
+            small adversarial inputs made from a numpy seed: rescore
             (row-end windows, invalid candidates, ties, codes >= 4, reverse
-            rows, L not a multiple of 16; slots with 0, 1 and 2 kept records,
-            all 44 classes, tile-crossing records, a full record tile, a
-            -inf weight, records out of slot order)
+            rows, L not a multiple of 16), correction (slots with 0, 1 and 2
+            kept records, all 44 classes, tile-crossing records, a full
+            record tile, a -inf weight, records out of slot order), window
+            identity (windows that wrap past the row end, empty windows,
+            L=128, 384 and 512) and consensus likelihood (negative qpos0,
+            'N' in both rows, targets shorter than 10, ir0/ir1 inside the
+            row, records without a used column, the f32 sum included)
   kernels   each kernel against its plain PyTorch version on the card, at
             the shapes its driver gives it; kernel times are device times
             from torch.profiler with the L2 cache flushed before each launch
+            (from CUDA events where the profiler lost the kernels' records)
   assemble  ancient_assemble on 120,000 synthetic reads (seed 1, coverage
             20, lengths 35-120, mean 51); every kernel must have launched
             and every device stage must have run records on the card
@@ -38,7 +43,6 @@ import time
 T0 = time.perf_counter()
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12      # CUDA cores (non-tensor) f32 peak
-F32_TOL = 1e-4                  # consensus log-likelihood sums, see below
 
 
 def phase(name: str, msg: str) -> None:
@@ -96,12 +100,15 @@ L2_FLUSH_BYTES = 128 << 20      # over twice the H100's 50 MB L2
 DEVICE_KERNELS = {"correction": ("correction_gate", "correction_kernel")}
 
 
-def kernel_ms(fn, kernels: tuple[str, ...], reps: int) -> float:
-    """Mean device milliseconds per call of `fn` spent in the CUDA kernels
-    whose names contain one of `kernels` (each call launches each once),
-    over `reps` calls, from torch.profiler.  Before each call a 128 MiB
-    write flushes the L2 cache, so every call reads its inputs from HBM;
-    the flush's own kernel is not counted."""
+def kernel_ms(fn, kernels: tuple[str, ...], reps: int) -> tuple[float, str]:
+    """(mean device milliseconds per call of `fn`, how they were timed).
+    Before each of `reps` calls a 128 MiB write flushes the L2 cache, so
+    every call reads its inputs from HBM.  "profiler": the time spent in
+    the CUDA kernels whose names contain one of `kernels` (each call
+    launches each once), from torch.profiler; the flush's own kernel is
+    not counted.  "events": when the profiler lost the kernels' records
+    in every session, CUDA events around each call (the whole call's
+    device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -110,7 +117,7 @@ def kernel_ms(fn, kernels: tuple[str, ...], reps: int) -> float:
     # the profiler now and then loses a session's kernel records: a
     # session that saw fewer than half the calls' launches of any of the
     # kernels is taken again
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -127,10 +134,23 @@ def kernel_ms(fn, kernels: tuple[str, ...], reps: int) -> float:
                     per_name[k][1] += e.count
         if all(2 * n >= reps for _, n in per_name.values()):
             # each kernel's mean time per launch, summed over the kernels
-            return sum(us / n for us, n in per_name.values()) / 1e3
+            return sum(us / n for us, n in per_name.values()) / 1e3, \
+                "profiler"
     seen = ", ".join(f"{k} {n}" for k, (_, n) in per_name.items())
-    raise SmokeFailure(f"the profiler saw under half of {reps} launches "
-                       f"({seen}) three times")
+    phase("kernels", f"the profiler saw under half of {reps} launches "
+          f"({seen}) five times; timing with CUDA events")
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in pairs:
+        flush.zero_()
+        # the card spins (about 0.1 ms) while the host enqueues the call,
+        # so the events time the device's work, not the host's launch
+        torch.cuda._sleep(200_000)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps, "events"
 
 
 def sync() -> None:
@@ -300,20 +320,22 @@ def check_kernels(damage, params, device, reads) -> dict:
     rows = {}
 
     def record(name, case, fn, ref, nbytes, ops, err, note=""):
-        ms = kernel_ms(fn, DEVICE_KERNELS.get(name, (f"{name}_kernel",)), 20)
+        ms, timer = kernel_ms(fn, DEVICE_KERNELS.get(name,
+                                                     (f"{name}_kernel",)), 20)
         wrapper_ms = cuda_ms(fn, 20)
         plain_ms = cuda_ms(ref, 3)
         b_ms, b_by = bound(nbytes, ops)
         row = rows.setdefault(name, {"cases": []})
         # no single PyTorch call computes any of these functions, so
         # library_ms stays null (see PERF.md)
-        row["cases"].append({"case": case, "ms": ms,
+        row["cases"].append({"case": case, "ms": ms, "timer": timer,
                              "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                              "bound_ms": b_ms, "bound_by": b_by,
                              "library_ms": None, "max_abs_err": err,
                              "bytes": nbytes, "ops": ops})
         phase("kernels", f"{name} [{case}] ok: kernel {ms:.4f} ms "
-              f"(wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"({timer}; wrapper {wrapper_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms by {b_by}: {nbytes} bytes, {ops:.0f} "
               f"operations{note}; max_abs_err {err})")
 
@@ -404,14 +426,10 @@ def _check_consensus(args, record):
     out = ext_cuda.consensus_likelihood(*args)
     ref = ext_cuda.consensus_likelihood_reference(*args)
     sync()
-    check(torch.equal(out[:, :3], ref[:, :3]),
-          "consensus_likelihood counts differ")
-    # both sum the f32 column values left to right, so the sums are
-    # expected equal; F32_TOL (1e-4 absolute, ~10 ulp of a sum of ~100
-    # terms) bounds them, and the caller re-scores every queue entrant
-    # in 80-bit arithmetic on the host
-    err = (out[:, 3] - ref[:, 3]).abs().max().item() if out.numel() else 0.0
-    check(err <= F32_TOL, f"consensus_likelihood sums differ by {err}")
+    # both sum the f32 column values strictly left to right, so all four
+    # columns, the sum included, must be equal bit for bit
+    check(torch.equal(out, ref), "consensus_likelihood differs from its "
+          "plain version")
     # bytes: the columns of each record that can be used (target column
     # in [0, tlen) and [ir0, ir1), query column in [0, qlen)) in its query
     # and target rows, the row indices, the five scalars the kernel
@@ -430,7 +448,7 @@ def _check_consensus(args, record):
     record("consensus_likelihood", f"L={L} n={qrow.numel()}",
            lambda: ext_cuda.consensus_likelihood(*args),
            lambda: ext_cuda.consensus_likelihood_reference(*args),
-           nbytes, 10.0 * width.sum().item(), err)
+           nbytes, 10.0 * width.sum().item(), 0)
 
 
 def _largest(calls, lo: int, hi: int, key: int):
@@ -622,9 +640,99 @@ def _correction_edges(rng, L: int, g: int, rt: int, nb: int, wtab,
                np.ascontiguousarray(wtab))), g, rt)
 
 
+def _record_rows(rng, n: int, L: int, shift, sub_rate: float,
+                 n_rate: float):
+    """(2n, L) uint8 symbol rows for n records: row 2i holds record i's
+    query, row 2i + 1 its target, the query rolled left by shift[i]
+    (target column c = query column (c + shift[i]) mod L), then each
+    row with a `sub_rate` share of random bases and an `n_rate` share of
+    'N'.  The rows are shuffled; returns (rows, qrow, trow)."""
+    import numpy as np
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    q = bases[rng.integers(0, 4, (n, L))]
+    cols = (np.arange(L)[None, :] + np.asarray(shift)[:, None]) % L
+    t = np.take_along_axis(q, cols, axis=1)
+    rows = np.empty((2 * n, L), np.uint8)
+    rows[0::2], rows[1::2] = q, t
+    r = rng.random(rows.shape)
+    rows[r < sub_rate] = bases[rng.integers(0, 4, int((r < sub_rate).sum()))]
+    rows[r > 1.0 - n_rate] = ord("N")
+    perm = rng.permutation(2 * n)
+    inv = np.argsort(perm)
+    return (rows[perm], inv[0::2].astype(np.int32),
+            inv[1::2].astype(np.int32))
+
+
+def window_edge_records(rng, L: int, n: int) -> dict:
+    """Window-identity records that reach the kernel's edges, as numpy
+    arrays (sym2, qrow, trow, scal (n, 4) = (qstart, tstart, win, 0)):
+    windows that wrap past the target row's end, empty windows, windows
+    cut by the query row's end, and records with unrelated rows; `kind`
+    names each record's case."""
+    import numpy as np
+    qstart = rng.integers(0, L, n)
+    win = rng.integers(1, L + 1, n)
+    kind = rng.integers(0, 5, n)
+    # 1: the target window wraps past the row end (tstart + win > L)
+    k = kind == 1
+    qstart[k] = rng.integers(0, 8, int(k.sum()))
+    win[k] = rng.integers(L // 3, L - 8, int(k.sum()))
+    tstart = rng.integers(0, L, n)
+    tstart[k] = L - rng.integers(1, L // 3, int(k.sum()))
+    win[kind == 2] = 0                                   # empty window
+    k = kind == 3                                        # cut at the row end
+    win[k] = L - qstart[k] + rng.integers(0, 20, int(k.sum()))
+    # the target row holds the query's bases where the window reads them
+    shift = (qstart - tstart) % L
+    shift[kind == 4] = rng.integers(0, L, int((kind == 4).sum()))
+    sym2, qrow, trow = _record_rows(rng, n, L, shift, 0.03, 0.02)
+    scal = np.zeros((n, 4), np.int32)
+    scal[:, 0], scal[:, 1], scal[:, 2] = qstart, tstart, win
+    return {"sym2": sym2, "qrow": qrow, "trow": trow, "scal": scal,
+            "kind": kind}
+
+
+def consensus_edge_records(rng, L: int, n: int) -> dict:
+    """Consensus-likelihood records that reach the kernel's edges, as
+    numpy arrays (sym2, qrow, trow, scal (n, 8) = (qpos0, qlen, tlen,
+    ir0, ir1, 0, 0, 0)): negative qpos0, 'N' in both rows, targets
+    shorter than 10 (the 3' layers override the 5' ones), ir0/ir1 inside
+    the row, records without a used column, and queries longer than the
+    row (query columns that wrap to the row start); `kind` names each
+    record's case."""
+    import numpy as np
+    qlen = rng.integers(L // 2, L + 1, n)
+    tlen = rng.integers(1, L + 1, n)
+    qpos0 = rng.integers(-L // 2, L // 2, n)
+    ir0 = rng.integers(-L, 1, n)
+    ir1 = rng.integers(L, 3 * L, n)
+    kind = rng.integers(0, 6, n)
+    k = kind == 1                                        # negative qpos0
+    qpos0[k] = -rng.integers(1, L, int(k.sum()))
+    k = kind == 2                                        # short targets
+    tlen[k] = rng.integers(1, 10, int(k.sum()))
+    qpos0[k] = rng.integers(-5, 5, int(k.sum()))
+    k = kind == 3                                        # ir0/ir1 inside
+    ir0[k] = rng.integers(1, L // 2, int(k.sum()))
+    ir1[k] = ir0[k] + rng.integers(1, L // 2, int(k.sum()))
+    k = np.nonzero(kind == 4)[0]                         # no used column
+    ir1[k[0::3]] = ir0[k[0::3]] + 1 - rng.integers(1, 4, len(k[0::3]))
+    qpos0[k[1::3]] = qlen[k[1::3]] + rng.integers(0, 8, len(k[1::3]))
+    tlen[k[2::3]] = 0
+    k = kind == 5                                        # query wraps
+    qlen[k] = L + rng.integers(1, 20, int(k.sum()))
+    qpos0[k] = rng.integers(0, L // 2, int(k.sum()))
+    sym2, qrow, trow = _record_rows(rng, n, L, qpos0 % L, 0.02, 0.03)
+    scal = np.zeros((n, 8), np.int32)
+    for i, v in enumerate((qpos0, qlen, tlen, ir0, ir1)):
+        scal[:, i] = v
+    return {"sym2": sym2, "qrow": qrow, "trow": trow, "scal": scal,
+            "kind": kind}
+
+
 def check_edges(damage, device) -> None:
-    """Each redesigned kernel against its plain version, bit for bit, on
-    small adversarial inputs made from a numpy seed."""
+    """Each kernel against its plain version, bit for bit, on small
+    adversarial inputs made from a numpy seed."""
     import numpy as np
     import torch
 
@@ -678,6 +786,44 @@ def check_edges(damage, device) -> None:
         phase("edges", f"correction {name} equal: {n_cls} classes, "
               f"{int(kept.numel())} kept records, max per slot "
               f"{int(per_slot.max())}")
+
+    from carpedeam_tpu_torch.convert import consensus_logm
+    from carpedeam_tpu_torch.ops import ext_cuda, window_cuda
+    on = (lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device))
+    for L in (128, 384, 512):
+        w = window_edge_records(rng, L, 6000)
+        args = [on(w[k]) for k in ("sym2", "qrow", "trow", "scal")]
+        out = window_cuda.window_identity(*args)
+        ref = window_cuda.window_identity_reference(*args)
+        sync()
+        check(torch.equal(out, ref), f"window_identity edge case L={L} "
+              f"differs from its plain version")
+        kinds = np.bincount(w["kind"], minlength=5)
+        phase("edges", f"window_identity L={L} n=6000 equal: {kinds[1]} "
+              f"wrapping, {kinds[2]} empty, {kinds[3]} cut at the row end, "
+              f"{kinds[4]} unrelated; {int(ref[:, 0].sum())} identities")
+    tables = (("the damage table", consensus_logm(damage)),
+              ("a random table", rng.normal(-3.0, 4.0, (11, 16))
+               .astype(np.float32)))
+    for L in (128, 384, 512):
+        c = consensus_edge_records(rng, L, 6000)
+        args = [on(c[k]) for k in ("sym2", "qrow", "trow", "scal")]
+        for tname, tab in tables:
+            out = ext_cuda.consensus_likelihood(*args, on(tab))
+            ref = ext_cuda.consensus_likelihood_reference(*args, on(tab))
+            sync()
+            check(torch.equal(out, ref), f"consensus_likelihood edge case "
+                  f"L={L} ({tname}) differs from its plain version")
+        total = ref[:, 0].cpu().numpy()
+        kind = c["kind"]
+        short = (c["scal"][:, 2] < 10) & (total > 0)
+        phase("edges", f"consensus_likelihood L={L} n=6000 equal, all four "
+              f"columns, with the damage table and a random one: "
+              f"{int((total == 0).sum())} without a used column, "
+              f"{int(short.sum())} short targets used, "
+              f"{int(((kind == 1) & (total > 0)).sum())} negative qpos0 "
+              f"used, {int(((kind == 5) & (total > 0)).sum())} wrapping "
+              f"queries used")
 
 
 def _rescore_need(code2, lens, pairs, out) -> tuple[float, int]:

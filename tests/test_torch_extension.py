@@ -1,7 +1,8 @@
 """The port's read-phase extension scoring kernels (window identity and
 consensus likelihood, plain PyTorch versions on the CPU) against the JAX
-package's Pallas kernels (interpret mode), and the port's batched
-scoring with device planes against its host path."""
+package's Pallas kernels (interpret mode), on the main path's records and
+on the adversarial records of chip_smoke.py's `edges` phase, and the
+port's batched scoring with device planes against its host path."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +21,8 @@ from carpedeam_tpu_torch.ops.planes import device_planes
 from carpedeam_tpu_torch.stages.correction import correction
 from carpedeam_tpu_torch.stages.rescorediagonal import rescorediagonal
 from torch_port_util import reads_world, to_jax_db
+
+import chip_smoke
 
 # The consensus kernel's f32 log-likelihood sum runs column by column in
 # the port and as a lane reduction in the Pallas kernel; the two orders
@@ -72,6 +75,57 @@ def test_window_identity_reverse_rows_and_edges():
     jidc, jryc = window_identity_pallas(jplanes, len(db), qid, tid, rev,
                                         qs, ts, win, interpret=True)
     assert np.array_equal(idc, jidc) and np.array_equal(ryc, jryc)
+
+
+@pytest.mark.parametrize("L", [128, 384, 512])
+def test_window_identity_edge_records_match_pallas(L):
+    """The `edges` phase's window records (windows that wrap past the
+    target row's end, empty windows, windows cut at the row end, a plane
+    width that is not a power of two) count the same in the port's plain
+    version and the Pallas kernel."""
+    w = chip_smoke.window_edge_records(np.random.default_rng(L), L, 400)
+    assert np.bincount(w["kind"], minlength=5).min() > 0
+    n_rows = w["sym2"].shape[0] // 2
+    scal = w["scal"]
+    args = (n_rows, w["qrow"], w["trow"] % n_rows, w["trow"] >= n_rows,
+            scal[:, 0], scal[:, 1], scal[:, 2])
+    idc, ryc = window_cuda.window_identity_cuda(
+        {"sym": torch.from_numpy(w["sym2"])}, *args)
+    jidc, jryc = window_identity_pallas({"sym": jnp.asarray(w["sym2"])},
+                                        *args, interpret=True)
+    assert np.array_equal(idc, jidc) and np.array_equal(ryc, jryc)
+    assert (idc[w["kind"] == 2] == 0).all() and idc.sum() > 0
+
+
+@pytest.mark.parametrize("L", [128, 384, 512])
+def test_consensus_likelihood_edge_records_match_pallas(L):
+    """The `edges` phase's consensus records (negative qpos0, 'N' in both
+    rows, targets shorter than 10, ir0/ir1 inside the row, records
+    without a used column, queries that wrap past the row end) give the
+    same counts in the port's plain version and the Pallas kernel, and
+    likelihoods within LIK_ATOL.  The table holds distinct multiples of
+    2**-10 in (-8, 0], so every partial sum of up to 512 columns is exact
+    in f32 and the two sums agree bit for bit whatever their order: a
+    wrong layer or base code shows as a difference."""
+    rng = np.random.default_rng(L)
+    c = chip_smoke.consensus_edge_records(rng, L, 400)
+    logm = (-rng.permutation(8192)[:176] / 1024).astype(np.float32)
+    s = c["scal"]
+    args = (c["sym2"].shape[0] // 2, c["qrow"], c["trow"], s[:, 0], s[:, 1],
+            s[:, 2], s[:, 3], s[:, 4], logm.reshape(11, 16))
+    mine = ext_cuda.consensus_likelihood_cuda(
+        {"sym": torch.from_numpy(c["sym2"])}, *args)
+    ref = consensus_likelihood_pallas({"sym": jnp.asarray(c["sym2"])},
+                                      *args, interpret=True)
+    for a, b in zip(mine[:3], ref[:3]):
+        assert np.array_equal(a, b)
+    np.testing.assert_allclose(mine[3], ref[3], rtol=0, atol=LIK_ATOL)
+    assert np.array_equal(mine[3], ref[3])
+    used = mine[0] > 0
+    for kind in (1, 2, 3, 5):
+        assert (used & (c["kind"] == kind)).any(), kind
+    assert not used[c["kind"] == 4].any()
+    assert (used & (s[:, 2] < 10)).any()
 
 
 def test_consensus_likelihood_matches_pallas(world):

@@ -2,7 +2,7 @@
 plain PyTorch versions) writes the same FASTA bytes as the JAX package,
 against its host path over 10 iterations (safe and --unsafe) and against
 its Pallas path (interpret mode) over a short run; plus the port's import
-and device rules."""
+and device rules and its `--use-device` routing."""
 import dataclasses
 import os
 import subprocess
@@ -13,7 +13,9 @@ import pytest
 import torch
 
 import carpedeam_tpu.pipeline as JP
-from carpedeam_tpu_torch import convert, pipeline, workload
+from carpedeam_tpu_torch import _build, convert, pipeline, utils, workload
+from carpedeam_tpu_torch.ops import (correction_cuda, ext_cuda, planes,
+                                     rescore_cuda, window_cuda)
 from carpedeam_tpu_torch.params import Params
 from torch_port_util import params_pair, reads_world, same_seqs
 
@@ -26,7 +28,8 @@ def test_ancient_assemble_fasta_matches_jax_host_path(tmp_path, unsafe):
     jp, tp = params_pair(use_device="0", ancient_unsafe=unsafe,
                          min_contig_len=100)
     JP.ancient_assemble(jdb, jp, jdm, out_fasta=str(tmp_path / "jax.fa"))
-    rep = pipeline.ancient_assemble(db, tp, tdm,
+    # the port's kernel path ("auto"), on the CPU: the plain versions
+    rep = pipeline.ancient_assemble(db, tp.copy(use_device="auto"), tdm,
                                     out_fasta=str(tmp_path / "port.fa"),
                                     device="cpu")
     assert len(rep) > 5
@@ -43,6 +46,82 @@ def test_nuclassemble_matches_jax_pallas_path():
     assert len(mine) > 100
     assert cyc == ref_cyc
     assert same_seqs(mine, ref)
+
+
+# the kernel wrappers and the plane upload: what the kernel path calls
+# and the host oracles never do
+_KERNEL_PATH = ((rescore_cuda, "rescore_pairs"),
+                (correction_cuda, "correction_kernel"),
+                (window_cuda, "window_identity"),
+                (ext_cuda, "consensus_likelihood"),
+                (planes, "PlanesPrefetch"))
+
+
+def _count_kernel_path(monkeypatch, forbid: bool) -> dict:
+    """Count the calls of every _KERNEL_PATH function (raise in each one
+    instead when `forbid`)."""
+    calls = {name: 0 for _, name in _KERNEL_PATH}
+    for module, name in _KERNEL_PATH:
+        fn = getattr(module, name)
+
+        def counted(*args, _fn=fn, _name=name, **kw):
+            if forbid:
+                raise AssertionError(f"{_name} called")
+            calls[_name] += 1
+            return _fn(*args, **kw)
+        monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+def test_use_device_0_runs_the_host_oracles_without_a_card(monkeypatch):
+    """--use-device 0 runs the host oracles as the JAX package does: no
+    planes, no kernel wrapper, no card (the default device "cuda" is not
+    read), zero launches, no device record, the JAX package's result."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _count_kernel_path(monkeypatch, forbid=True)
+    db, jdb, jdm, tdm = reads_world(59, 1500)
+    jp, tp = params_pair(use_device="0", num_iterations=4,
+                         num_iterations_reads=2, min_contig_len=0)
+    _build.reset_launch_counts()
+    utils.coverage_reset()
+    mine, cyc, _ = pipeline.nuclassemble(db, tp, tdm)
+    assert all(v == 0 for v in _build.launch_counts().values())
+    assert all(d["device"] == 0 for d in utils.coverage_summary().values())
+    ref, ref_cyc, _ = JP.nuclassemble(jdb, jp, jdm)
+    assert len(mine) > 100
+    assert cyc == ref_cyc
+    assert same_seqs(mine, ref)
+
+
+@pytest.mark.parametrize("use_device", ["auto", "pallas"])
+def test_auto_and_pallas_run_the_kernel_path(monkeypatch, use_device):
+    """--use-device auto and pallas go through every kernel wrapper (their
+    plain versions on the CPU tensors of device="cpu"), and need a card
+    unless the caller asks for the CPU."""
+    calls = _count_kernel_path(monkeypatch, forbid=False)
+    db, _, _, tdm = reads_world(60, 800)
+    p = Params(use_device=use_device, num_iterations=3,
+               num_iterations_reads=2, min_contig_len=0)
+    out, _, _ = pipeline.nuclassemble(db, p, tdm, device="cpu")
+    assert len(out) > 0
+    assert all(n > 0 for n in calls.values()), calls
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pipeline.nuclassemble(db, p, tdm)
+
+
+@pytest.mark.parametrize("use_device", ["1", "mesh"])
+def test_use_device_without_a_port_raises(use_device):
+    """--use-device 1 (the XLA tensor programs) and mesh (the sharded
+    stages) have no implementation in the port: both entry points raise
+    ValueError instead of running another implementation."""
+    db, _, _, tdm = reads_world(61, 200)
+    p = Params(use_device=use_device, num_iterations=1,
+               num_iterations_reads=1, min_contig_len=0)
+    with pytest.raises(ValueError, match="no implementation"):
+        pipeline.nuclassemble(db, p, tdm, device="cpu")
+    with pytest.raises(ValueError, match="no implementation"):
+        pipeline.ancient_assemble(db, p, tdm, device="cpu")
 
 
 def test_checkpoints_resume_to_the_same_result(tmp_path):
