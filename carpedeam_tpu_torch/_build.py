@@ -146,6 +146,18 @@ KERNELS = {
                    [_P, _P, _I, _P, _P, _P, _I, _P, _P],
                    "carpedeam_tpu_torch/csrc/ext.cu",
                    "carpedeam_tpu/ops/ext_pallas.py:64"),
+        CudaKernel("kmer_windows", "cd_kmer_windows",
+                   [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+                   "carpedeam_tpu_torch/csrc/kmer_windows.cu",
+                   "carpedeam_tpu/ops/kmer_tpu.py:121"),
+        CudaKernel("kmer_select", "cd_kmer_select",
+                   [_P, _P, _I, _I, _I, _I, ctypes.c_float, _P, _P],
+                   "carpedeam_tpu_torch/csrc/kmer_select.cu",
+                   "carpedeam_tpu/ops/kmer_tpu.py:190"),
+        CudaKernel("seg_suffix_scan", "cd_seg_suffix_scan",
+                   [_I, _P, _P, _P, _I, _P, _P, _P, _P],
+                   "carpedeam_tpu_torch/csrc/seg_scan.cu",
+                   "carpedeam_tpu/ops/kmer_tpu.py:404"),
     )
 }
 

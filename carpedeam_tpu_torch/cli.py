@@ -3,6 +3,8 @@
 
     python -m carpedeam_tpu_torch.cli ancient_assemble reads.fq out.fasta \
         tmpDir --ancient-damage prefix [flags] [--device cuda|cpu]
+    python -m carpedeam_tpu_torch.cli ancient_assemble R1.fq R2.fq \
+        out.fasta tmpDir ...    (paired-end: FLASH-merged, mergereads)
 
 Flag names and defaults follow src/carpedeam.cpp's command table and
 LocalParameters (params.py).  CARPEDEAM_PROFILE_DIR=<dir> writes a
@@ -37,13 +39,26 @@ def _profiler(prof_dir: str | None, device: str):
     prof.export_chrome_trace(os.path.join(prof_dir, "trace.json"))
 
 
+def _load_reads(paths: list[str], db_mode: bool = False) -> SeqDB:
+    """One reads file -> SeqDB (a saved DB under --db-mode); two or more
+    (R1a R2a R1b R2b ...) -> the FLASH-merged pairs (mergereads), as
+    carpedeam_tpu/cli.py:25-32."""
+    if db_mode:
+        return SeqDB.load(paths[0])
+    if len(paths) == 1:
+        return SeqDB.from_fastx(paths[0])
+    from .stages.mergereads import mergereads
+    return mergereads(paths)
+
+
 def main(argv=None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     parser = argparse.ArgumentParser(prog="carpedeam-tpu-torch")
     sub = parser.add_subparsers(dest="command", required=True)
     for name in ("ancient_assemble", "nuclassemble"):
         sp = sub.add_parser(name)
-        sp.add_argument("files", nargs=3, help="READS OUT_FASTA TMP_DIR")
+        sp.add_argument("files", nargs="+",
+                        help="READS... OUT_FASTA TMP_DIR")
         sp.add_argument("--device", choices=("cuda", "cpu"),
                         default="cuda",
                         help="run the CUDA kernels (default) or their "
@@ -59,13 +74,16 @@ def main(argv=None) -> int:
 
 
 def _dispatch(args) -> int:
-    reads_file, out_fasta, tmp_dir = args.files
+    n_reads = len(args.files) - 2
+    if n_reads < 1 or (n_reads > 1 and n_reads % 2):
+        raise ParamError("expected READS OUT_FASTA TMP_DIR or R1 R2 "
+                         "[R1 R2 ...] OUT_FASTA TMP_DIR")
+    *reads_files, out_fasta, tmp_dir = args.files
     params = params_from_args(args)
     from .utils import set_verbosity
     set_verbosity(params.verbosity)
     t0 = time.time()
-    reads = SeqDB.load(reads_file) if params.db_mode \
-        else SeqDB.from_fastx(reads_file)
+    reads = _load_reads(reads_files, bool(params.db_mode))
     print(f"[carpedeam-tpu-torch] {len(reads)} reads "
           f"({reads.total_residues} residues) in {time.time()-t0:.1f}s")
     damage = DamageModel.load(params.ancient_damage_path)

@@ -7,7 +7,7 @@ Phases, each printing one line with the elapsed seconds:
 
   device    requires a CUDA device; prints the card's name and power limit
   build     builds the CUDA kernels (one nvcc call) and the host C++ library
-  edges     all four kernels against their plain versions, bit for bit, on
+  edges     every kernel against its plain version, bit for bit, on
             small adversarial inputs made from a numpy seed: rescore
             (row-end windows, invalid candidates, ties, codes >= 4, reverse
             rows, L not a multiple of 16), correction (slots with 0, 1 and 2
@@ -16,16 +16,37 @@ Phases, each printing one line with the elapsed seconds:
             identity (windows that wrap past the row end, empty windows,
             L=128, 384 and 512) and consensus likelihood (negative qpos0,
             'N' in both rows, targets shorter than 10, ir0/ir1 inside the
-            row, records without a used column, the f32 sum included)
+            row, records without a used column, the f32 sum included); the
+            three kmer kernels on the buckets and scans of the device
+            kmermatcher over a DB with 'N' bases, lowercase, duplicates,
+            palindromic k-mers, sequences shorter than k and a one-row
+            bucket (its PrefDB equal to the host's), and the scan on
+            segments spanning its 4096-element tiles
   kernels   each kernel against its plain PyTorch version on the card, at
             the shapes its driver gives it; kernel times are device times
             from torch.profiler with the L2 cache flushed before each launch
             (from CUDA events where the profiler lost the kernels' records)
   assemble  ancient_assemble on 120,000 synthetic reads (seed 1, coverage
-            20, lengths 35-120, mean 51); every kernel must have launched
-            and every device stage must have run records on the card
+            20, lengths 35-120, mean 51); every kernel of the path must have
+            launched and every device stage must have run records on the
+            card
+  kmer      the device kmermatcher (CARPEDEAM_KMER_DEVICE=1) on the run's
+            first read-phase and first contig-phase SeqDB: PrefDB equal to
+            the host's in all seven columns, kernels A, B, C equal to their
+            plain versions with times and bounds, the torch.sort stand-ins'
+            times, stage seconds on the card and on the host; then the
+            120k ancient_assemble again with CARPEDEAM_KMER_DEVICE=1: its
+            FASTA byte-identical, every kmermatcher call on the card, and
+            the three kmer kernels launched
   repeat    nuclassemble (2 iterations) on a 15,000-read slice, twice on the
             card and once on the CPU: all three FASTA files must be equal
+  use_device_1
+            ancient_assemble on a 15,000-read workload (seed 2, coverage 20)
+            with --use-device 1 (the tensor programs) and with the default
+            kernels: equal FASTA
+  paired    R1/R2 FASTQ of that workload (R1 the first 60 bases, R2 the
+            reverse complement of the last 60) through the CLI's paired-end
+            form on the card and on the CPU: equal FASTA
 
 The second-to-last line is a JSON object with each kernel's numbers; the
 last line is {"ok": true, "device": {...}}.  Any failed phase exits
@@ -60,15 +81,16 @@ def check(cond: bool, msg: str) -> None:
 
 @contextlib.contextmanager
 def capture(module, name: str, calls: list):
-    """Record the arguments of every call of module.<name> (tensors are
-    cloned) while the drivers run; the call itself goes through."""
+    """Record the positional arguments of every call of module.<name>
+    (tensors are cloned) while the drivers run; the call itself goes
+    through."""
     import torch
     fn = getattr(module, name)
 
-    def wrapper(*args):
+    def wrapper(*args, **kw):
         calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
                            for a in args))
-        return fn(*args)
+        return fn(*args, **kw)
     setattr(module, name, wrapper)
     try:
         yield calls
@@ -95,9 +117,11 @@ def cuda_ms(fn, reps: int) -> float:
 L2_FLUSH_BYTES = 128 << 20      # over twice the H100's 50 MB L2
 
 
-# device kernels each wrapper call launches, by name (the correction
-# wrapper launches its gate kernel, then the kernel)
-DEVICE_KERNELS = {"correction": ("correction_gate", "correction_kernel")}
+# device kernels each wrapper call launches, by name, where they are not
+# <name>_kernel (the correction wrapper launches its gate kernel, then the
+# kernel)
+DEVICE_KERNELS = {"correction": ("correction_gate", "correction_kernel"),
+                  "seg_suffix_scan": ("seg_scan_kernel",)}
 
 
 def kernel_ms(fn, kernels: tuple[str, ...], reps: int) -> tuple[float, str]:
@@ -162,9 +186,11 @@ def sync() -> None:
 @contextlib.contextmanager
 def device_profile():
     """torch.profiler over the block: fills in the wall seconds, the
-    summed self device time of every device op and the five ops with the
-    most device time."""
+    summed device time of every device event (kernels, copies, fills;
+    each once: the host ops that launched them carry the same time and
+    are not counted) and the five device events with the most time."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     out = {}
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -177,7 +203,7 @@ def device_profile():
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
-        if us > 0:
+        if us > 0 and e.device_type != DeviceType.CPU:
             rows.append((us, e.key, e.count))
     rows.sort(reverse=True)
     out["device_ms"] = sum(r[0] for r in rows) / 1e3
@@ -892,6 +918,378 @@ def _correction_bytes(sym2, rec_rows, rscal, slot_qid, qscal, wtab, g: int,
         + slot_qid.numel() * (4 + 8) + wtab.numel() * 4 + out.numel()
 
 
+# ---- the device kmermatcher: kernels A, B and C ---------------------------
+
+PREF_COLUMNS = ("qkey", "tkey", "score", "diag", "starts", "qkeys", "qext")
+
+def same_prefdb(a, b) -> bool:
+    """All seven PrefDB columns equal."""
+    import numpy as np
+    return all(np.array_equal(np.asarray(getattr(a, c)),
+                              np.asarray(getattr(b, c)))
+               for c in PREF_COLUMNS)
+
+
+def kmer_edge_db(rng):
+    """A SeqDB that reaches the device kmermatcher's edges: overlapping
+    reads of a random genome with 'N' bases and lowercase stretches,
+    exact duplicates, palindromic k-mers (ACGT repeats and embedded
+    reverse-complement palindromes), sequences shorter than k, and one
+    length bucket holding a single row (700 bases, bucket 768, where
+    the selection compacts); about 2 of every 10 sequences extended."""
+    import numpy as np
+
+    from carpedeam_tpu_torch.io.seqdb import SeqDB
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    comp = np.zeros(256, dtype=np.uint8)
+    comp[bases] = np.frombuffer(b"TGCA", dtype=np.uint8)
+    genome = bases[rng.integers(0, 4, 20_000)]
+    seqs = []
+    for _ in range(2400):
+        ln = int(rng.integers(30, 121))
+        s0 = int(rng.integers(0, len(genome) - ln))
+        s = genome[s0:s0 + ln].copy()
+        if rng.random() < 0.5:
+            s = comp[s[::-1]]
+        r = rng.random()
+        if r < 0.1:
+            s[rng.integers(0, ln, int(rng.integers(1, 4)))] = ord("N")
+        elif r < 0.2:
+            a = int(rng.integers(0, ln))
+            s[a:a + 25] = s[a:a + 25] | 0x20            # lowercase
+        seqs.append(s.tobytes())
+    seqs += seqs[:40]                                  # exact duplicates
+    for i in range(30):                                # palindromes
+        half = bases[rng.integers(0, 4, 10 + i % 7)]
+        core = np.concatenate([half, comp[half[::-1]]])
+        flank = genome[200 * i:200 * i + 30]
+        seqs.append(np.concatenate([flank, core, flank[::-1]]).tobytes())
+    seqs += [b"ACGT" * 25, b"ACGT" * 12 + b"A", b"TTAA" * 9]
+    seqs += [genome[5 * i:5 * i + 5 + i].tobytes() for i in range(15)]
+    seqs.append(genome[5000:5700].tobytes())           # the single-row bucket
+    ext = rng.random(len(seqs)) < 0.2
+    return SeqDB.from_sequences(seqs, ext=ext)
+
+
+def scan_edge_inputs(rng, M: int, mode: int, device):
+    """Inputs of kernel C's two scans: (s, j, flags) for the argmax with
+    many ties in s, or (v, flags) for the OR; flags sparse, and none in
+    [3000, 9000), so one segment spans the first tile boundaries (tiles
+    of 4096)."""
+    import numpy as np
+    import torch
+    f = rng.random(M) < (0.01 if mode == 0 else 0.02)
+    f[3000:9000] = False
+    on = (lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device))
+    if mode == 0:
+        return (on(rng.integers(1, 40, M).astype(np.int64)),
+                on(np.arange(M, dtype=np.int64)), on(f))
+    return on(rng.random(M) < 0.05), on(f)
+
+
+def check_kmer_edges(device) -> None:
+    """Kernels A, B and C against their plain versions, bit for bit, on
+    the inputs the device kmermatcher gives them on kmer_edge_db (both
+    phases' settings) and on scan_edge_inputs; and the device
+    kmermatcher's PrefDB against the host's there."""
+    import numpy as np
+    import torch
+
+    from carpedeam_tpu_torch.kmer.matcher import kmermatcher
+    from carpedeam_tpu_torch.ops import kmer_device as K
+    rng = np.random.default_rng(20261018)
+    db = kmer_edge_db(rng)
+    for k, kps, only_ext in ((20, 200, False), (22, 60, True)):
+        cap = {n: [] for n in ("kmer_windows", "select_walk",
+                               "seg_suffix_scan")}
+        with capture(K, "kmer_windows", cap["kmer_windows"]), \
+                capture(K, "select_walk", cap["select_walk"]), \
+                capture(K, "seg_suffix_scan", cap["seg_suffix_scan"]):
+            dev = K.kmermatcher_device(db, k, kps, 0.2, only_ext,
+                                       device=device)
+        host = kmermatcher(db, k, kps, 0.2, only_ext)
+        check(same_prefdb(dev, host), f"device kmermatcher (k={k}) differs "
+              f"from the host's on the edge DB")
+        _check_kmer_calls(cap)
+        shapes = [tuple(c[0].shape) for c in cap["kmer_windows"]]
+        phase("edges", f"kmermatcher k={k} kps={kps} only_ext={only_ext}: "
+              f"{len(db)} sequences, {len(host.qkey)} PrefDB rows equal to "
+              f"the host's; kernels A, B, C equal on buckets {shapes} and "
+              f"{len(cap['seg_suffix_scan'])} scans")
+    for M in (1, 4095, 4096, 4097, 3 * 4096 + 123, 40_000):
+        for mode in (K.SCAN_ARGMAX, K.SCAN_OR):
+            xs = scan_edge_inputs(rng, M, mode, device)
+            out = K.seg_suffix_scan(mode, *xs)
+            ref = K.tiled_suffix_scan_reference(mode, xs)
+            sync()
+            check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+                  f"seg_suffix_scan mode {mode} M={M} differs from its "
+                  f"plain version")
+    phase("edges", "seg_suffix_scan equal on M = 1, 4095, 4096, 4097, "
+          "12411, 40000 (both scans; one segment spans [3000, 9000))")
+
+
+def _check_kmer_calls(cap) -> None:
+    """Every captured kernel A, B, C call against its plain version."""
+    import torch
+
+    from carpedeam_tpu_torch.ops import kmer_device as K
+    for codes, lens, k, seed in cap["kmer_windows"]:
+        out = K.kmer_windows(codes, lens, k, seed)
+        ref = (K.identity_hash_reference(codes, lens, seed),
+               *K.windows_bucket_reference(codes, lens, k, seed))
+        sync()
+        check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+              f"kmer_windows differs at {tuple(codes.shape)}")
+    for key2s, lens, k, kps, scale in cap["select_walk"]:
+        out = K.select_walk(key2s, lens, k, kps, scale)
+        ref = K.select_bucket_reference(key2s, lens, k, kps, scale)
+        sync()
+        check(torch.equal(out, ref),
+              f"select_walk differs at {tuple(key2s.shape)}")
+    for mode, *xs in cap["seg_suffix_scan"]:
+        out = K.seg_suffix_scan(mode, *xs)
+        ref = K.tiled_suffix_scan_reference(mode, xs)
+        sync()
+        check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+              f"seg_suffix_scan mode {mode} differs at M={xs[0].numel()}")
+
+
+def check_kmer(dbs: dict, params, device) -> dict:
+    """Phase `kmer`: the device kmermatcher against the host's on the
+    main path's SeqDBs (`dbs`: phase -> (SeqDB, k, only_ext)), each
+    kernel against its plain version at the read-phase shapes with its
+    times and bound, the torch.sort stand-ins' times, and the stage's
+    seconds on the card and on the host.  Returns {kernel: {"cases"}}."""
+    import torch
+
+    from carpedeam_tpu_torch.kmer.matcher import kmermatcher
+    from carpedeam_tpu_torch.ops import kmer_device as K
+    rows = {}
+    kps, scale = params.kmers_per_sequence, params.kmers_per_sequence_scale
+    for name, (db, k, only_ext) in dbs.items():
+        def dev_run():
+            out = K.kmermatcher_device(db, k, kps, scale, only_ext,
+                                       params.hash_shift, device=device)
+            sync()
+            return out
+
+        def host_run():
+            return kmermatcher(db, k, kps, scale, only_ext,
+                               params.hash_shift)
+        cap = {n: [] for n in ("kmer_windows", "select_walk",
+                               "seg_suffix_scan", "rowsort_bucket",
+                               "global_sort", "sort_pairs")}
+        with contextlib.ExitStack() as stack:
+            for n, calls in cap.items():
+                stack.enter_context(capture(K, n, calls))
+            dev = dev_run()
+        host = host_run()
+        check(same_prefdb(dev, host), f"device kmermatcher differs from the "
+              f"host's on the {name} DB")
+        dev_s = _best_seconds(dev_run, 3)
+        host_s = _best_seconds(host_run, 3)
+        phase("kmer", f"{name} DB: {len(db)} sequences, k={k}: PrefDB "
+              f"({len(host.qkey)} rows) equal to the host's in all seven "
+              f"columns; stage seconds device {dev_s:.4f}, host "
+              f"{host_s:.4f} (best of 3)")
+        if name != "read-phase":
+            continue
+        with device_profile() as prof:
+            dev_run()
+        phase("kmer", f"profiled device kmermatcher: device busy "
+              f"{prof['device_ms']:.3f} ms of {prof['wall_s']:.3f} s "
+              "(profiled wall); top device ops " + json.dumps(prof["top"]))
+        _check_kmer_calls(cap)
+        _time_kmer_kernels(cap, rows)
+        for n in ("rowsort_bucket", "global_sort", "sort_pairs"):
+            args = cap[n][0]
+            ms = cuda_ms(lambda: getattr(K, n)(*args), 5)
+            rows.setdefault("sorts", {})[n] = ms
+            phase("kmer", f"torch.sort stand-in {n} "
+                  f"{[tuple(a.shape) for a in args]}: {ms:.4f} ms (CUDA "
+                  f"events, 5 calls)")
+        rows["stage_s"] = {"device": dev_s, "host": host_s}
+    return rows
+
+
+def _best_seconds(fn, reps: int) -> float:
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _time_kmer_kernels(cap, rows) -> None:
+    """Times and bounds of kernels A, B and C on the captured read-phase
+    inputs.  Operations are counted as 64-bit integer operations and held
+    against the f32 rate (no 64-bit integer rate is published), so the
+    operations bound is a lower one; every case is bound by bytes."""
+    from carpedeam_tpu_torch.ops import kmer_device as K
+
+    def record(name, case, fn, ref, nbytes, ops):
+        ms, timer = kernel_ms(fn, DEVICE_KERNELS.get(name,
+                                                     (f"{name}_kernel",)), 20)
+        plain_ms = cuda_ms(ref, 3)
+        b_ms, b_by = bound(nbytes, ops)
+        rows.setdefault(name, {"cases": []})["cases"].append({
+            "case": case, "ms": ms, "timer": timer,
+            "wrapper_ms": cuda_ms(fn, 20), "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "max_abs_err": 0, "bytes": nbytes, "ops": ops})
+        phase("kmer", f"{name} [{case}] equal: kernel {ms:.4f} ms ({timer}; "
+              f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}: "
+              f"{nbytes} bytes, {ops:.0f} operations)")
+
+    codes, lens, k, seed = max(cap["kmer_windows"],
+                               key=lambda c: c[0].numel())
+    B, L = codes.shape
+    W = max(L - k + 1, 0)
+    # bytes: the code plane and lengths in; the hash, key2 and pos_strand
+    # out; operations: per window k packing steps, the reverse complement
+    # and the xxh64 (about 60), per row two a column of the hash
+    record("kmer_windows", f"B={B} L={L} W={W}",
+           lambda: K.kmer_windows(codes, lens, k, seed),
+           lambda: (K.identity_hash_reference(codes, lens, seed),
+                    K.windows_bucket_reference(codes, lens, k, seed)),
+           B * L + 4 * B + 8 * B + 12 * B * W,
+           float(B * W * (3 * k + 60) + 2 * int(lens.sum())))
+    key2s, lens, k, kps, scale = max(cap["select_walk"],
+                                     key=lambda c: c[0].numel())
+    B, W = key2s.shape
+    # bytes: the sorted rows and lengths in, the hits out; operations:
+    # about ten a window over the three passes
+    record("kmer_select", f"B={B} W={W}",
+           lambda: K.select_walk(key2s, lens, k, kps, scale),
+           lambda: K.select_bucket_reference(key2s, lens, k, kps, scale),
+           9 * B * W + 4 * B, float(10 * B * W))
+    for mode, *xs in cap["seg_suffix_scan"]:
+        M = xs[0].numel()
+        nbytes = M * (17 + 16) if mode == K.SCAN_ARGMAX else M * 3
+        record("seg_suffix_scan",
+               f"{'argmax' if mode == K.SCAN_ARGMAX else 'or'} M={M}",
+               lambda: K.seg_suffix_scan(mode, *xs),
+               lambda: K.tiled_suffix_scan_reference(mode, xs),
+               nbytes, float(6 * M))
+
+
+# kernels of the device kmermatcher, launched only under
+# CARPEDEAM_KMER_DEVICE=1
+KMER_KERNELS = ("kmer_windows", "kmer_select", "seg_suffix_scan")
+
+
+def run_assemble(label: str, reads, params, damage, out_dir: str,
+                 kmer_device: bool) -> dict:
+    """ancient_assemble on the card (CARPEDEAM_KMER_DEVICE=1 or 0) with
+    the launch counts and coverage set to 0 just before and read just
+    after; prints the wall and stage seconds.  Returns wall, stages,
+    launches, coverage and the FASTA bytes."""
+    import torch
+
+    from carpedeam_tpu_torch import _build, utils
+    from carpedeam_tpu_torch.pipeline import ancient_assemble
+    path = os.path.join(out_dir, f"{label}_{int(kmer_device)}_"
+                                 f"{params.use_device}.fasta")
+    old = os.environ.get("CARPEDEAM_KMER_DEVICE")
+    os.environ["CARPEDEAM_KMER_DEVICE"] = "1" if kmer_device else "0"
+    timer = utils.StageTimer()
+    try:
+        _build.reset_launch_counts()
+        utils.coverage_reset()
+        t0 = time.perf_counter()
+        rep = ancient_assemble(reads, params, damage, out_fasta=path,
+                               device="cuda", timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _build.launch_counts()
+        coverage = utils.coverage_summary()
+    finally:
+        if old is None:
+            del os.environ["CARPEDEAM_KMER_DEVICE"]
+        else:
+            os.environ["CARPEDEAM_KMER_DEVICE"] = old
+    stages: dict[str, float] = {}
+    for stage, secs in timer.summary().items():
+        key = stage.rsplit("_", 1)[0] if stage[-1].isdigit() else stage
+        stages[key] = stages.get(key, 0.0) + secs
+    what = (f"{len(reads)} reads, --use-device {params.use_device}, "
+            f"CARPEDEAM_KMER_DEVICE={int(kmer_device)}")
+    phase(label, f"{what}: {len(rep)} contigs in {wall:.2f} s; stage "
+          "seconds " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    phase(label, "coverage " + json.dumps(coverage))
+    phase(label, "launches " + json.dumps(launches))
+    check(len(rep) > 0, "no contigs")
+    check(all(int(rep.lengths[i]) >= params.min_contig_len
+              for i in range(len(rep))), "contig shorter than the minimum")
+    with open(path, "rb") as fh:
+        fasta = fh.read()
+    return {"wall": wall, "stages": stages, "launches": launches,
+            "coverage": coverage, "fasta": fasta}
+
+
+def write_paired(db, r1: str, r2: str, n: int = 60) -> None:
+    """R1/R2 FASTQ of the reads of `db`: R1 the first n bases, R2 the
+    reverse complement of the last n, constant qualities."""
+    import numpy as np
+    comp = np.full(256, ord("N"), dtype=np.uint8)
+    comp[np.frombuffer(b"ACGTacgt", np.uint8)] = np.frombuffer(b"TGCAtgca",
+                                                             np.uint8)
+    with open(r1, "w") as f1, open(r2, "w") as f2:
+        for i in range(len(db)):
+            s = db.seq_bytes(i)
+            a = s[:n].tobytes().decode()
+            b = comp[s[-n:][::-1]].tobytes().decode()
+            f1.write(f"@p{i}/1\n{a}\n+\n{'I' * len(a)}\n")
+            f2.write(f"@p{i}/2\n{b}\n+\n{'I' * len(b)}\n")
+
+
+def write_profiles(prefix: str, sub5p, sub3p) -> None:
+    """<prefix>5p.prof / <prefix>3p.prof damage profiles of these rates."""
+    head = "\t".join(f"{a}>{b}" for a in "ACGT" for b in "ACGT" if a != b)
+    for suffix, rates in (("5p.prof", sub5p), ("3p.prof", sub3p)):
+        with open(prefix + suffix, "w") as fh:
+            fh.write(head + "\n")
+            for row in rates:
+                fh.write("\t".join(repr(float(x)) for x in row) + "\n")
+
+
+def check_paired(db, rates, out_dir: str) -> None:
+    """Phase `paired`: R1/R2 FASTQ of the slice through the CLI's
+    paired-end form on the card and on the CPU; the FASTA files must be
+    equal."""
+    r1 = os.path.join(out_dir, "paired_R1.fq")
+    r2 = os.path.join(out_dir, "paired_R2.fq")
+    write_paired(db, r1, r2)
+    prefix = os.path.join(out_dir, "paired_damage_")
+    write_profiles(prefix, *rates)
+    fastas = []
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(out_dir, f"paired_{dev}.fasta")
+        cmd = [sys.executable, "-m", "carpedeam_tpu_torch.cli",
+               "ancient_assemble", r1, r2, out,
+               os.path.join(out_dir, f"paired_tmp_{dev}"),
+               "--ancient-damage", prefix, "--device", dev, "-v", "2"]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=400, cwd=os.path.dirname(
+                                 os.path.abspath(__file__)))
+        check(res.returncode == 0, f"paired-end CLI on {dev} failed "
+              f"({res.returncode}): {res.stderr[-2000:]}")
+        with open(out, "rb") as fh:
+            fastas.append(fh.read())
+        reads_line = next((ln for ln in res.stdout.splitlines()
+                           if " reads (" in ln), "")
+        phase("paired", f"{dev}: {time.perf_counter() - t0:.2f} s, "
+              f"{reads_line.strip()}; {len(fastas[-1])} FASTA bytes")
+    check(fastas[0] == fastas[1], "the paired-end CUDA and CPU FASTA differ")
+    check(fastas[0].startswith(b">0 len:"), "the paired-end run wrote no "
+          "contig")
+    phase("paired", "paired-end FASTA byte-identical on the card and on the "
+          "CPU")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -904,8 +1302,8 @@ def main() -> int:
                          text=True, timeout=60)
     smi_line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
         else "nvidia-smi: " + smi.stderr.strip()
-    name = torch.cuda.get_device_name(0)
-    phase("device", f"{name}, {torch.cuda.device_count()} device(s), "
+    device_name = torch.cuda.get_device_name(0)
+    phase("device", f"{device_name}, {torch.cuda.device_count()} device(s), "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi_line, flush=True)
 
@@ -930,56 +1328,71 @@ def main() -> int:
     from carpedeam_tpu_torch.damage import DamageModel
     from carpedeam_tpu_torch.params import Params
     utils.set_verbosity(2)
-    reads, (sub5p, sub3p) = workload.generate(1, 120_000, coverage=20.0)
+    reads, rates = workload.generate(1, 120_000, coverage=20.0)
+    sub5p, sub3p = rates
     damage = DamageModel.from_rates(sub5p, sub3p)
     params = Params()
     phase("kernels", f"workload: {len(reads)} reads, "
           f"{reads.total_residues} residues")
     check_edges(damage, "cuda")
+    check_kmer_edges("cuda")
     rows = check_kernels(damage, params, "cuda", reads)
 
     # ---- assemble ------------------------------------------------------
-    from carpedeam_tpu_torch.pipeline import ancient_assemble, nuclassemble
+    from carpedeam_tpu_torch import pipeline
+    from carpedeam_tpu_torch.pipeline import nuclassemble
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
-    timer = utils.StageTimer()
-    _build.reset_launch_counts()
-    utils.coverage_reset()
-    t0 = time.perf_counter()
-    rep = ancient_assemble(reads, params, damage,
-                           out_fasta=os.path.join(out_dir, "assemble.fasta"),
-                           device="cuda", timer=timer)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = _build.launch_counts()
-    coverage = utils.coverage_summary()
-    stages: dict[str, float] = {}
-    for stage, secs in timer.summary().items():
-        key = stage.rsplit("_", 1)[0] if stage[-1].isdigit() else stage
-        stages[key] = stages.get(key, 0.0) + secs
-    phase("assemble", f"{len(rep)} contigs in {wall:.2f} s; stage seconds "
-          + json.dumps({k: round(v, 3) for k, v in stages.items()}))
-    phase("assemble", "coverage " + json.dumps(coverage))
-    phase("assemble", "launches " + json.dumps(launches))
-    check(len(rep) > 0, "no contigs")
-    check(all(int(rep.lengths[i]) >= params.min_contig_len
-              for i in range(len(rep))), "contig shorter than the minimum")
+    km_calls: list = []
+    with capture(pipeline, "kmermatcher", km_calls):
+        run = run_assemble("assemble", reads, params, damage, out_dir,
+                           kmer_device=False)
+    launches = run["launches"]
+    for k in KMER_KERNELS:
+        check(launches[k] == 0, f"kernel {k} launched on the host-kmer path")
     for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched by the main path")
+        check(v > 0 or k in KMER_KERNELS,
+              f"kernel {k} was not launched by the main path")
     for stage in ("rescorediagonal", "correction", "extension_scoring"):
-        d = coverage.get(stage)
+        d = run["coverage"].get(stage)
         check(d is not None and d["device"] > 0,
               f"stage {stage} ran no records on the card")
+
+    # ---- kmer ----------------------------------------------------------
+    # the first read-phase and the first contig-phase SeqDB of the run
+    dbs = {}
+    for db, k, _, _, only_ext, *_ in km_calls:
+        dbs.setdefault("read-phase" if k == params.kmer_size_reads
+                       else "contig-phase", (db, k, only_ext))
+    check(len(dbs) == 2, "the run gave no read- and contig-phase SeqDBs")
+    kmer_rows = check_kmer(dbs, params, "cuda")
+    rows.update({k: v for k, v in kmer_rows.items() if k in KMER_KERNELS})
+    krun = run_assemble("assemble", reads, params, damage, out_dir,
+                        kmer_device=True)
+    check(krun["fasta"] == run["fasta"], "the CARPEDEAM_KMER_DEVICE=1 FASTA "
+          "differs from the default run's")
+    km = krun["coverage"].get("kmermatcher")
+    check(km is not None and km["host"] == 0 and km["device"] > 0,
+          f"kmermatcher calls not all on the card: {km}")
+    for k in KMER_KERNELS:
+        check(krun["launches"][k] > 0,
+              f"kernel {k} was not launched by the device-kmer path")
+        launches[k] = krun["launches"][k]
+    secs = (krun["stages"]["kmermatcher"], run["stages"]["kmermatcher"])
+    phase("assemble", "CARPEDEAM_KMER_DEVICE=1 FASTA byte-identical to the "
+          f"default run's; kmermatcher stage {secs[0]:.3f} s on the card "
+          f"against {secs[1]:.3f} s on the host; {km['device']} of "
+          f"{km['total']} calls on the card")
 
     # ---- repeat --------------------------------------------------------
     sl = reads.select(np.arange(15_000))
     p2 = params.copy(num_iterations=2, num_iterations_reads=1,
                      min_contig_len=0)
     fastas = []
-    for run, dev in enumerate(("cuda", "cuda", "cpu")):
+    for i, dev in enumerate(("cuda", "cuda", "cpu")):
         t0 = time.perf_counter()
-        if run == 1:
+        if i == 1:
             # the profiler slows the host side many times over, so the
             # busy share is taken against the first, unprofiled run
             with device_profile() as prof:
@@ -994,7 +1407,7 @@ def main() -> int:
             res, _, _ = nuclassemble(sl, p2, damage, device=dev)
             if dev == "cuda":
                 torch.cuda.synchronize()
-        if run == 0:
+        if i == 0:
             wall0 = time.perf_counter() - t0
         res.headers = [f"{i} len:{int(res.lengths[i])}"
                        for i in range(len(res))]
@@ -1008,6 +1421,22 @@ def main() -> int:
     check(fastas[0] == fastas[2], "CUDA and CPU runs wrote different FASTA")
     phase("repeat", "FASTA byte-identical across the two CUDA runs and the "
           "CPU run")
+
+    # ---- use_device_1 --------------------------------------------------
+    # a 15,000-read workload at the same coverage (the slice above covers
+    # its genome 2.5 times and assembles no contig of the minimum length)
+    w15, _ = workload.generate(2, 15_000, coverage=20.0)
+    base = run_assemble("use_device_1", w15, params, damage, out_dir,
+                        kmer_device=False)
+    one = run_assemble("use_device_1", w15, params.copy(use_device="1"),
+                       damage, out_dir, kmer_device=False)
+    check(one["fasta"] == base["fasta"], "the --use-device 1 FASTA differs "
+          "from the default CUDA run's")
+    phase("use_device_1", f"--use-device 1 FASTA byte-identical to the "
+          f"default CUDA run's ({len(base['fasta'])} bytes)")
+
+    # ---- paired --------------------------------------------------------
+    check_paired(w15, rates, out_dir)
 
     kernels = []
     for kname, k in _build.KERNELS.items():
@@ -1026,7 +1455,7 @@ def main() -> int:
     phase("done", f"all phases passed in {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

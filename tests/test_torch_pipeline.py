@@ -110,18 +110,16 @@ def test_auto_and_pallas_run_the_kernel_path(monkeypatch, use_device):
         pipeline.nuclassemble(db, p, tdm)
 
 
-@pytest.mark.parametrize("use_device", ["1", "mesh"])
-def test_use_device_without_a_port_raises(use_device):
-    """--use-device 1 (the XLA tensor programs) and mesh (the sharded
-    stages) have no implementation in the port: both entry points raise
-    ValueError instead of running another implementation."""
+@pytest.mark.parametrize("entry", ["nuclassemble", "ancient_assemble"])
+def test_use_device_without_a_port_raises(entry):
+    """--use-device mesh (the sharded stages) has no implementation in the
+    port: each entry point raises ValueError instead of running another
+    implementation."""
     db, _, _, tdm = reads_world(61, 200)
-    p = Params(use_device=use_device, num_iterations=1,
+    p = Params(use_device="mesh", num_iterations=1,
                num_iterations_reads=1, min_contig_len=0)
     with pytest.raises(ValueError, match="no implementation"):
-        pipeline.nuclassemble(db, p, tdm, device="cpu")
-    with pytest.raises(ValueError, match="no implementation"):
-        pipeline.ancient_assemble(db, p, tdm, device="cpu")
+        getattr(pipeline, entry)(db, p, tdm, device="cpu")
 
 
 def test_checkpoints_resume_to_the_same_result(tmp_path):
@@ -143,7 +141,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import carpedeam_tpu_torch.pipeline, carpedeam_tpu_torch.workload\n"
         "from carpedeam_tpu_torch.ops import (correction_cuda, ext_cuda,\n"
         "    extension_batch, planes, rescore_cuda, window_cuda)\n"
-        "from carpedeam_tpu_torch.stages import linclust\n"
+        "from carpedeam_tpu_torch.ops import (correction_device,\n"
+        "    kmer_device, rescore_device)\n"
+        "from carpedeam_tpu_torch.stages import linclust, mergereads\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'carpedeam_tpu' or m.startswith('carpedeam_tpu.')]\n"
         "print(bad)\n"
