@@ -13,6 +13,8 @@ Layer map:
   ops/      device planes and the kernel wrappers (*_cuda.py), each with
             a plain PyTorch version used for CPU tensors
   stages/   pipeline stages (host oracles and splicing)
+  parallel/ multi-process ranks (CARPEDEAM_RANK/WORLD, --world) and the
+            device-sharded stages (--use-device mesh)
   pipeline  the nuclassemble / ancient_assemble drivers
 """
 

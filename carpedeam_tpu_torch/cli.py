@@ -5,15 +5,25 @@
         tmpDir --ancient-damage prefix [flags] [--device cuda|cpu]
     python -m carpedeam_tpu_torch.cli ancient_assemble R1.fq R2.fq \
         out.fasta tmpDir ...    (paired-end: FLASH-merged, mergereads)
+    python -m carpedeam_tpu_torch.cli ancient_assemble ... --world 2
 
 Flag names and defaults follow src/carpedeam.cpp's command table and
-LocalParameters (params.py).  CARPEDEAM_PROFILE_DIR=<dir> writes a
-torch.profiler trace of the run (Chrome trace format) into <dir>.
+LocalParameters (params.py).  `--world N` spawns and supervises N ranks
+of the same command; a process started with CARPEDEAM_RANK and
+CARPEDEAM_WORLD (and optionally CARPEDEAM_COORD=host:port, the
+torch.distributed rendezvous) runs as one rank of a group sharing
+TMP_DIR (parallel/driver.py).  Under `--device cuda` rank r runs on
+cuda:(r % device count).  CARPEDEAM_PROFILE_DIR=<dir> writes a
+torch.profiler trace of the run (Chrome trace format) into
+<dir>/trace.json and the kernels' launch counts into
+<dir>/launches.json.  A bad parameter and a missing input exit 1 with a
+one-line message, as the JAX package's CLI does.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import os
 import sys
 import time
@@ -33,10 +43,13 @@ def _profiler(prof_dir: str | None, device: str):
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
+    from . import _build
     with torch.profiler.profile(activities=acts) as prof:
         yield
     os.makedirs(prof_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(prof_dir, "trace.json"))
+    with open(os.path.join(prof_dir, "launches.json"), "w") as fh:
+        json.dump(_build.launch_counts(), fh)
 
 
 def _load_reads(paths: list[str], db_mode: bool = False) -> SeqDB:
@@ -64,13 +77,81 @@ def main(argv=None) -> int:
                         help="run the CUDA kernels (default) or their "
                              "plain PyTorch versions on the CPU; not read "
                              "under --use-device 0 (the host oracles)")
+        sp.add_argument("--world", type=int, default=1,
+                        help="spawn and supervise N cooperating ranks "
+                             "(the reference's --mpi-runner analogue, "
+                             "Parameters.cpp:150); output is "
+                             "byte-identical to a single process")
         add_flags(sp)
     args = parser.parse_args(argv)
+    if args.world > 1 and "CARPEDEAM_RANK" not in os.environ:
+        return _launch_world(args.world, argv)
     try:
         return _dispatch(args)
     except ParamError as e:
-        print(f"[carpedeam-tpu-torch] {e}", file=sys.stderr)
-        return 2
+        # the reference names the offending flag and exits without a
+        # stack trace (Parameters.cpp parseParameters)
+        print(f"{parser.prog}: invalid parameter: {e}", file=sys.stderr)
+        return 1
+    except FileNotFoundError as e:
+        print(f"{parser.prog}: input not found: {e.filename or e}",
+              file=sys.stderr)
+        return 1
+
+
+def _launch_world(world: int, argv) -> int:
+    """Spawn and supervise `world` rank processes of this same command
+    (the RUNNER/--mpi-runner role, lib/mmseqs/src/commons/Parameters.cpp:
+    150,2175): each child gets CARPEDEAM_RANK/CARPEDEAM_WORLD and runs
+    the distributed pipeline on the shared tmp dir, and CARPEDEAM_COORD
+    on a free local port, so the ranks meet at the torch.distributed
+    barrier (rank 0 serves it).  Any rank failing terminates the group.  Unless OMP_NUM_THREADS is set, each rank gets
+    an equal share of the host's cores for its OpenMP and torch threads
+    (as torchrun does), so the ranks do not oversubscribe them."""
+    import socket
+    import subprocess
+    procs: list[subprocess.Popen] = []
+    threads = str(max(1, (os.cpu_count() or 1) // world))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    try:
+        for r in range(world):
+            env = dict(os.environ, CARPEDEAM_RANK=str(r),
+                       CARPEDEAM_WORLD=str(world), CARPEDEAM_COORD=coord)
+            env.setdefault("OMP_NUM_THREADS", threads)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "carpedeam_tpu_torch.cli", *argv],
+                env=env))
+        while True:
+            codes = [p.poll() for p in procs]
+            bad = next((c for c in codes if c not in (None, 0)), None)
+            if bad is not None:
+                print(f"[carpedeam-tpu-torch] rank failed (exit {bad}); "
+                      f"group terminated", file=sys.stderr)
+                return 1
+            if all(c == 0 for c in codes):
+                return 0
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            p.wait()
+
+
+def _rank_device(device: str, rank: int) -> str:
+    """A rank's device: cuda:(rank % device count) under "cuda" (raises
+    without a card), the CPU under "cpu"."""
+    if device == "cpu":
+        return device
+    from .utils import resolve_device
+    resolve_device(device)
+    import torch
+    dev = f"cuda:{rank % torch.cuda.device_count()}"
+    torch.cuda.set_device(dev)
+    return dev
 
 
 def _dispatch(args) -> int:
@@ -87,26 +168,37 @@ def _dispatch(args) -> int:
     print(f"[carpedeam-tpu-torch] {len(reads)} reads "
           f"({reads.total_residues} residues) in {time.time()-t0:.1f}s")
     damage = DamageModel.load(params.ancient_damage_path)
+    # one rank of a group (the reference's --mpi-runner contract) when
+    # CARPEDEAM_RANK/WORLD say so, on a shared tmp_dir
+    from .parallel.driver import DistContext
+    dist = DistContext.from_env(os.path.join(tmp_dir, "dist"))
+    device = args.device if dist is None or params.use_device == "0" \
+        else _rank_device(args.device, dist.rank)
     with _profiler(os.environ.get("CARPEDEAM_PROFILE_DIR"),
                    "cpu" if params.use_device == "0" else args.device):
         if args.command == "ancient_assemble":
             from .pipeline import ancient_assemble
-            rep = ancient_assemble(
+            out = ancient_assemble(
                 reads, params, damage, out_fasta=out_fasta,
-                tmp_dir=tmp_dir, device=args.device,
+                tmp_dir=tmp_dir, device=device, dist=dist,
                 progress=lambda m: print(f"[carpedeam-tpu-torch] {m}"))
-            n_out = len(rep)
         else:
             from .pipeline import nuclassemble
-            p = apply_nuclassemble_defaults(params)
-            result, _, _ = nuclassemble(reads, p, damage, tmp_dir=tmp_dir,
-                                        device=args.device)
-            result.headers = [f"{i} len:{int(result.lengths[i])}"
-                              for i in range(len(result))]
-            result.to_fasta(out_fasta)
-            n_out = len(result)
-    print(f"[carpedeam-tpu-torch] wrote {n_out} contigs -> {out_fasta} "
-          f"({time.time()-t0:.1f}s total)")
+            out, _, _ = nuclassemble(
+                reads, apply_nuclassemble_defaults(params), damage,
+                tmp_dir=tmp_dir, device=device, dist=dist)
+            if dist is not None and dist.rank != 0:
+                out = None          # rank 0 writes the result
+            else:
+                out.headers = [f"{i} len:{int(out.lengths[i])}"
+                               for i in range(len(out))]
+                out.to_fasta(out_fasta)
+    if out is None:
+        print(f"[carpedeam-tpu-torch] rank {dist.rank}: done "
+              f"({time.time()-t0:.1f}s total)")
+    else:
+        print(f"[carpedeam-tpu-torch] wrote {len(out)} contigs -> "
+              f"{out_fasta} ({time.time()-t0:.1f}s total)")
     return 0
 
 

@@ -248,9 +248,36 @@ def pref_from_entries(seqdb: SeqDB, ent: dict,
     return _pref_from_scan(seqdb, scan)
 
 
-def _pref_from_scan(seqdb: SeqDB, scan: tuple) -> PrefDB:
+def sort_kmer_entries_device(ent: dict, device) -> np.ndarray:
+    """Global sort of the k-mer table on `device` (the ips4o SORT_PARALLEL
+    analogue, kmermatcher.cpp:409-415): the permutation ordering the
+    entries by (kmer|b63 asc, seqLen desc, id asc, pos asc), ties in
+    input order, i.e. np.lexsort's.  Chained stable torch.sorts from the
+    least significant key.  torch has no uint64; every key is kmer|BIT63,
+    so bit 63 is set in all of them and their int64 views (all negative)
+    order exactly as the unsigned values do.  Returns int64 indices."""
+    import torch
+
+    from ..utils import resolve_device
+    dev = resolve_device(device)
+    keys = ((ent["pos"], torch.int32), (ent["id"], torch.int64),
+            (-ent["seq_len"].astype(np.int64), torch.int64),
+            ((ent["kmer"] | BIT63).view(np.int64), torch.int64))
+    order = torch.arange(len(ent["kmer"]), dtype=torch.int64, device=dev)
+    for key, dtype in keys:
+        k = torch.from_numpy(np.ascontiguousarray(key)).to(dev, dtype)
+        order = order[torch.sort(k[order], stable=True).indices]
+    return order.cpu().numpy()
+
+
+def _pref_from_scan(seqdb: SeqDB, scan: tuple,
+                    row_range: tuple[int, int] | None = None) -> PrefDB:
     """Finish a native scan result (rows + per-centre group info) into a
-    PrefDB, appending the missing-centre passthrough rows."""
+    PrefDB, appending the missing-centre passthrough rows.
+
+    `row_range=(qlo, qhi)` bounds the result to centres in that sequence
+    row span (the distributed range-local mode: the scan covers only the
+    span, and the passthrough rows are added for that span alone)."""
     qkey_r, tkey_r, score_r, diag_r, grs, gcentre = scan
     n_rows = len(qkey_r)
     starts_np = np.concatenate([grs, [n_rows]])
@@ -258,8 +285,9 @@ def _pref_from_scan(seqdb: SeqDB, scan: tuple) -> PrefDB:
     qext_np = np.zeros(len(gcentre), dtype=bool)
     # sequences never written as a centre: empty self-hit,
     # wasExtended passthrough (:716-729, "Louis was here")
-    missing = np.setdiff1d(np.arange(len(seqdb), dtype=np.int64), gcentre,
-                           assume_unique=False)
+    span = np.arange(*(row_range if row_range is not None
+                       else (0, len(seqdb))), dtype=np.int64)
+    missing = np.setdiff1d(span, gcentre, assume_unique=False)
     if len(missing):
         mk = seqdb.keys[missing].astype(np.uint32)
         qkey_r = np.concatenate([qkey_r, mk])

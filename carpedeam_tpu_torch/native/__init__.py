@@ -153,6 +153,15 @@ def get_lib():
             ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
             _u32p2, _u32p2, _i32p, _i32p, _i64p, _i64p, _i64p]
         lib.kmermatcher_scan.restype = ctypes.c_int64
+        lib.kmer_emit_pairs.argtypes = [
+            _u64p, _i64p, _i32p, _i32p, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
+            _u64p, _u32p2, _u8p]
+        lib.kmer_emit_pairs.restype = ctypes.c_int64
+        lib.kmer_pairs_to_pref.argtypes = [
+            _u64p, _u32p2, _u8p, ctypes.c_int64, _u32p2,
+            _u32p2, _u32p2, _i32p, _i32p, _i64p, _i64p, _i64p]
+        lib.kmer_pairs_to_pref.restype = ctypes.c_int64
         lib.banded_align_one.argtypes = [
             _u8p, ctypes.c_int64, _u8p, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
@@ -411,6 +420,55 @@ def kmermatcher_scan(kmer, ids, pos, seq_len, keys,
         _as(keys, np.uint32, _u32p),
         1 if include_only_extendable else 0, cov_mode,
         ctypes.c_float(cov_thr),
+        qkey.ctypes.data_as(_u32p), tkey.ctypes.data_as(_u32p),
+        score.ctypes.data_as(_i32p), diag.ctypes.data_as(_i32p),
+        grs.ctypes.data_as(_i64p), gc.ctypes.data_as(_i64p),
+        ng.ctypes.data_as(_i64p))
+    g = int(ng[0])
+    return (qkey[:n_rows], tkey[:n_rows], score[:n_rows], diag[:n_rows],
+            grs[:g], gc[:g])
+
+
+def kmer_emit_pairs(ent: dict, include_only_extendable: bool,
+                    cov_mode: int = 0, cov_thr: float = 0.0) -> tuple:
+    """Phase 1 of the kmermatcher scan (native/kmer_pairs.cpp): entry
+    table -> (pk1, pk2, fwd) pair stream, the same for any order of the
+    same entries."""
+    lib = get_lib()
+    _u32p = ctypes.POINTER(ctypes.c_uint32)
+    n = len(ent["kmer"])
+    pk1 = np.zeros(n, dtype=np.uint64)
+    pk2 = np.zeros(n, dtype=np.uint32)
+    fwd = np.zeros(n, dtype=np.uint8)
+    n_pairs = lib.kmer_emit_pairs(
+        _as(ent["kmer"], np.uint64, _u64p), _as(ent["id"], np.int64, _i64p),
+        _as(ent["pos"], np.int32, _i32p),
+        _as(ent["seq_len"], np.int32, _i32p), n,
+        1 if include_only_extendable else 0, int(cov_mode),
+        ctypes.c_float(cov_thr),
+        pk1.ctypes.data_as(_u64p), pk2.ctypes.data_as(_u32p),
+        fwd.ctypes.data_as(_u8p))
+    return pk1[:n_pairs], pk2[:n_pairs], fwd[:n_pairs]
+
+
+def kmer_pairs_to_pref(pk1, pk2, fwd, keys) -> tuple:
+    """Phase 2: pair stream -> (qkey, tkey, score, diag, group_row_start,
+    group_centre), the result shape of kmermatcher_scan.  The pair sort is
+    stable, so the given order breaks ties."""
+    lib = get_lib()
+    _u32p = ctypes.POINTER(ctypes.c_uint32)
+    n_pairs = len(pk1)
+    cap = 2 * n_pairs + 2
+    qkey = np.zeros(cap, dtype=np.uint32)
+    tkey = np.zeros(cap, dtype=np.uint32)
+    score = np.zeros(cap, dtype=np.int32)
+    diag = np.zeros(cap, dtype=np.int32)
+    grs = np.zeros(cap, dtype=np.int64)
+    gc = np.zeros(cap, dtype=np.int64)
+    ng = np.zeros(1, dtype=np.int64)
+    n_rows = lib.kmer_pairs_to_pref(
+        _as(pk1, np.uint64, _u64p), _as(pk2, np.uint32, _u32p),
+        _as(fwd, np.uint8, _u8p), n_pairs, _as(keys, np.uint32, _u32p),
         qkey.ctypes.data_as(_u32p), tkey.ctypes.data_as(_u32p),
         score.ctypes.data_as(_i32p), diag.ctypes.data_as(_i32p),
         grs.ctypes.data_as(_i64p), gc.ctypes.data_as(_i64p),

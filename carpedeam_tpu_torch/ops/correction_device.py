@@ -205,28 +205,36 @@ def correction_device_stage(seqdb: SeqDB, aln, damage: DamageModel,
                                     seq_id_thr)
     rec_d = {k: to_device(v, dev) for k, v in rec.items()}
 
-    # per-position metadata over the flat data, records in order (the
-    # rec_goffset of a query is its offset there)
-    lens = seqdb.lengths.astype(np.int64)
-    starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
-    pos_in_seq = np.arange(total_len) - np.repeat(starts, lens)
-    data = seqdb.data[:total_len]
-    obs = CHAR_TO_ACGT[data].astype(np.int64)
-    own_layer = layer_index(pos_in_seq, np.repeat(lens, lens))
-    was_ext_pos = np.repeat(seqdb.ext, lens)
-
+    obs, own_layer, was_ext_pos = position_inputs(seqdb)
     corrected, tot = correction_device(
         planes["sym"], to_device(np.asarray(lengths), dev), rec_d,
         to_device(obs, dev), to_device(own_layer, dev),
         to_device(was_ext_pos, dev),
         tuple(to_device(t, dev) for t in correction_tables(damage)),
         total_len)
-    corrected = corrected.cpu().numpy()
-    tot = tot.cpu().numpy()
     coverage_add("correction", n, 0)
+    return corrected_db(seqdb, corrected.cpu().numpy(), tot.cpu().numpy())
 
+
+def position_inputs(seqdb: SeqDB) -> tuple[np.ndarray, ...]:
+    """Per-position (obs, own_layer, was_ext_pos) over the flat data,
+    records in order (the rec_goffset of a query is its offset there)."""
+    lens = seqdb.lengths.astype(np.int64)
+    total_len = int(lens.sum())
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    pos_in_seq = np.arange(total_len) - np.repeat(starts, lens)
+    obs = CHAR_TO_ACGT[seqdb.data[:total_len]].astype(np.int64)
+    own_layer = layer_index(pos_in_seq, np.repeat(lens, lens))
+    return obs, own_layer, np.repeat(seqdb.ext, lens)
+
+
+def corrected_db(seqdb: SeqDB, corrected: np.ndarray,
+                 tot: np.ndarray) -> SeqDB:
+    """The corrected SeqDB: each position's argmax base, or its own base
+    where its total coverage is <= 1."""
+    total_len = int(seqdb.lengths.sum())
     acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
-    out_flat = np.where(tot <= 1, data, acgt[corrected])
+    out_flat = np.where(tot <= 1, seqdb.data[:total_len], acgt[corrected])
     return SeqDB.from_flat(out_flat, seqdb.lengths.copy(),
                            keys=seqdb.keys.copy(), ext=seqdb.ext.copy(),
                            headers=seqdb.headers)

@@ -154,3 +154,36 @@ def rescorediagonal_device(seqdb, pref, seq_id_thr, eval_thr=0.001,
     coverage_add("rescorediagonal", n, 0)
     return assemble_alndb(seqdb, pref, raw, seq_id_thr, eval_thr,
                           aln_len_thr)
+
+
+def evalue_device(score: torch.Tensor, seq_len: torch.Tensor,
+                  db_res_count) -> torch.Tensor:
+    """The gapless e-value in f32 on the scores' device, the counterpart
+    of carpedeam_tpu/ops/rescore_tpu.py::evalue_device (:309): evalue.py's
+    closed form with torch.special.erfc in place of
+    jax.scipy.special.erfc.  The pipeline computes its e-values on the
+    host (evalue.py, f64); this is the device form of the same formula."""
+    from .. import evalue as ev
+    y = score.to(torch.float32)
+    m = seq_len.to(torch.float32)
+    n = torch.as_tensor(db_res_count, dtype=torch.float32, device=y.device)
+    y_thr = 2.0 * ev.ALPHA_FSC / ev.LAMBDA
+    inv_sqrt_2pi = 1.0 / np.sqrt(2.0 * np.pi)
+
+    def phi(x):
+        return 0.5 * torch.special.erfc(-float(np.sqrt(0.5)) * x)
+
+    m_li = m - ev.A_FSC * y
+    vi = torch.clamp(ev.ALPHA_FSC * y, min=y_thr)
+    sq = torch.sqrt(vi)
+    m_f = m_li / sq
+    p_m = phi(m_f)
+    e_m = -inv_sqrt_2pi * torch.exp(-0.5 * m_f * m_f)
+    p1 = m_li * p_m - sq * e_m
+    n_lj = n - ev.A_FSC * y
+    n_f = n_lj / sq
+    p_n = phi(n_f)
+    e_n = -inv_sqrt_2pi * torch.exp(-0.5 * n_f * n_f)
+    p2 = n_lj * p_n - sq * e_n
+    area = p1 * p2 + vi * p_m * p_n     # c_y == vi for gapless parameters
+    return ev.K * torch.exp(-ev.LAMBDA * y) * area

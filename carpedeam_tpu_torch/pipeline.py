@@ -9,8 +9,10 @@ stream to the device; rescorediagonal, correction and the read-phase
 extension scoring run the CUDA kernels (ops/*_cuda.py) on `device`
 ("cuda", the default), or the same drivers with the kernels' plain
 PyTorch versions when the caller passes device="cpu".  `--use-device 0`
-runs the host oracles instead, as the JAX package does
-(`_pick_stage_impls`).
+runs the host oracles instead, `1` the tensor programs and `mesh` the
+same programs sharded over a list of devices (parallel/mesh.py), as the
+JAX package does (`_pick_stage_impls`).  With `dist` (parallel/driver.py)
+the loop runs as one rank of a process group.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import time
 from functools import partial
 
 import numpy as np
+import torch
 
 from .damage import DamageModel
 from .io.seqdb import SeqDB
@@ -28,7 +31,9 @@ from .ops.correction_device import correction_device_stage
 from .ops.kmer_device import kmermatcher_device
 from .ops.rescore_cuda import rescorediagonal_cuda
 from .ops.rescore_device import rescorediagonal_device
-from .params import ParamError, Params, parse_byte_size
+from .parallel.driver import (dist_apply_by_query_range, dist_kmermatcher,
+                              dist_rescorediagonal)
+from .params import Params, parse_byte_size
 from .stages.contig_merge import contig_merge
 from .stages.correction import correction
 from .stages.cyclecheck import cyclecheck
@@ -103,7 +108,7 @@ def _pick_kmermatcher(params: Params, device):
     return km
 
 
-def _pick_stage_impls(use_device: str, device):
+def _pick_stage_impls(use_device: str, device, mesh_devices=None):
     """(rescore_fn, correction_fn, device or None, planes_out) for
     `--use-device`, the counterpart of carpedeam_tpu/pipeline.py::
     _pick_stage_impls.
@@ -114,16 +119,21 @@ def _pick_stage_impls(use_device: str, device):
     the CPU); their correction can derive the corrected planes on the
     device (`planes_out`).  "1" runs the JAX package's tensor programs
     for accelerators that are not TPUs (ops/rescore_device.py,
-    ops/correction_device.py) on `device`.  "mesh" (the sharded stages)
-    has no implementation in the port yet and raises rather than run
-    another one in its place."""
+    ops/correction_device.py) on `device`.  "mesh" shards those programs
+    over `make_mesh(mesh_devices)`: every visible card, or the CPU alone
+    when `device` is the CPU and no list is given; its stages pack their
+    own planes, so none are prefetched (carpedeam_tpu/pipeline.py:84-91).
+    """
     if use_device == "0":
         return rescorediagonal, correction, None, False
     if use_device == "mesh":
-        raise ParamError("--use-device mesh (the sharded stages of "
-                         "parallel/mesh.py) has no implementation in the "
-                         "PyTorch port yet (ROADMAP Queue 1 item 5); use 0, "
-                         "1, auto or pallas")
+        from .parallel.mesh import (correction_sharded, make_mesh,
+                                    rescorediagonal_sharded)
+        if mesh_devices is None and torch.device(device).type == "cpu":
+            mesh_devices = ["cpu"]
+        mesh = make_mesh(mesh_devices)
+        return (rescorediagonal_sharded(mesh), correction_sharded(mesh),
+                None, False)
     dev = resolve_device(device)
     if use_device == "1":
         return (partial(rescorediagonal_device, device=dev),
@@ -134,16 +144,36 @@ def _pick_stage_impls(use_device: str, device):
 
 def nuclassemble(reads: SeqDB, params: Params, damage: DamageModel,
                  tmp_dir: str | None = None, progress=None, device="cuda",
-                 timer: StageTimer | None = None):
+                 timer: StageTimer | None = None, dist=None,
+                 mesh_devices=None):
     """The inner assembly loop (data/nuclassemble.sh:97-233).
 
     Returns (result SeqDB, cycle_all keys set, source SeqDB).  `device`
     is "cuda" (default; raises without a card) or "cpu", and is not read
     under `params.use_device == "0"` (the host oracles); `timer`
-    (optional) collects the per-stage wall times.
+    (optional) collects the per-stage wall times; `mesh_devices` is the
+    device list of `--use-device mesh` (parallel/mesh.make_mesh; under
+    `dist`, `device` alone unless a list is given).
+
+    `dist` (parallel/driver.DistContext) runs the loop as one rank of a
+    process group, as carpedeam_tpu/pipeline.py:221-397 does: the
+    kmermatcher splits by k-mer and centre ranges and keeps the rank's
+    centre span; the rank rescores that span with the host oracle and
+    runs correction (the `--use-device` pick, on `device`), read
+    extension (host scoring: no planes) and contig merging on it; every
+    rank assembles the identical merged DB after each stage (requires a
+    shared `tmp_dir`).  Only rank 0 writes checkpoints; the ranks meet at
+    a barrier after every iteration.  Byte-identical to the
+    single-process run.
     """
+    if dist is not None and not tmp_dir:
+        raise ValueError("distributed mode requires a shared tmp_dir")
+    if dist is not None and mesh_devices is None:
+        # a rank shards over its own device, cuda:(rank % cards) under
+        # the CLI, not over every card
+        mesh_devices = [device]
     rescore_fn, correction_fn, dev, planes_out = _pick_stage_impls(
-        params.use_device, device)
+        params.use_device, device, mesh_devices)
     if tmp_dir:
         # key the checkpoint dir by the parameter + input fingerprint
         # (par.hashParameter, GuidedNuclassembler.cpp:106-110): re-running
@@ -160,8 +190,9 @@ def nuclassemble(reads: SeqDB, params: Params, damage: DamageModel,
         """Start the per-iteration plane pack + H2D before the (host)
         kmermatcher runs; the copy overlaps the k-mer scan and
         `_shared_from` below collects the finished planes.  The host
-        oracles take no planes."""
-        if dev is None or not len(db):
+        oracles, the mesh stages and the ranks of a group take no
+        planes."""
+        if dev is None or dist is not None or not len(db):
             return None
         from .ops.planes import PlanesPrefetch
         # plane width is capped at 512: the short-read bulk stays device-
@@ -212,78 +243,87 @@ def nuclassemble(reads: SeqDB, params: Params, damage: DamageModel,
 
         # the plane pack + upload streams while the host k-mer scan runs
         planes_pf = _planes_prefetch(cur)
-        with timer.time(f"kmermatcher_{step}"):
-            pref = kmermatcher_fn(
-                cur,
-                params.kmer_size_reads if read_phase
-                else params.kmer_size_contigs,
-                params.kmers_per_sequence,
-                params.kmers_per_sequence_scale,
-                params.include_only_extendable_reads if read_phase
-                else params.include_only_extendable_contigs,
-                params.hash_shift)
-        shared = _shared_from(planes_pf)
+        k = params.kmer_size_reads if read_phase \
+            else params.kmer_size_contigs
+        only_ext = params.include_only_extendable_reads if read_phase \
+            else params.include_only_extendable_contigs
         seq_id = params.seq_id_thr if read_phase \
             else params.corr_contig_seq_id
+        with timer.time(f"kmermatcher_{step}"):
+            if dist is None:
+                pref = kmermatcher_fn(cur, k, params.kmers_per_sequence,
+                                      params.kmers_per_sequence_scale,
+                                      only_ext, params.hash_shift)
+            else:
+                # range-local: this rank's centre span only; rescore,
+                # correction and extension consume the same slice, and
+                # only changed sequence rows cross ranks
+                pref, _ = dist_kmermatcher(
+                    dist, cur, k, params.kmers_per_sequence,
+                    params.kmers_per_sequence_scale, only_ext,
+                    params.hash_shift, step)
+        shared = _shared_from(planes_pf)
         with timer.time(f"rescorediagonal_{step}"):
-            aln = rescore_fn(cur, pref, seq_id, params.eval_thr,
-                             params.aln_len_thr, **shared)
-        if read_phase:
+            if dist is None:
+                aln = rescore_fn(cur, pref, seq_id, params.eval_thr,
+                                 params.aln_len_thr, **shared)
+            else:
+                aln = dist_rescorediagonal(dist, cur, pref, seq_id,
+                                           params.eval_thr,
+                                           params.aln_len_thr, step)
+
+        def per_query(tag, db, fn):
+            """fn(db, aln); under `dist`, over this rank's query span
+            with the changed rows merged across ranks."""
+            if dist is None:
+                return fn(db, aln)
+            return dist_apply_by_query_range(dist, step, tag, db, aln, fn)
+
+        with timer.time(f"correction_{step}"):
             ext_pro = None
             corr_shared = None
-            with timer.time(f"correction_{step}"):
-                if shared and planes_out:
-                    # corrected planes derive on the device from the
-                    # correction kernel's own output (no re-pack or
-                    # re-upload), and the correction pull is DEFERRED:
-                    # the extension stage's first device pass dispatches
-                    # against the derived planes while the corrected
-                    # bytes still stream to the host
-                    corr_fin, corr_shared = correction_fn(
-                        cur, aln, damage, params.corr_reads_ry_seq_id,
-                        params.seq_id_thr, return_planes=True, defer=True,
-                        **shared)
-                    if corr_shared is not None \
-                            and not params.ancient_unsafe:
-                        from .ops.extension_batch import ext_prologue
-                        ext_pro = ext_prologue(cur, aln,
-                                               corr_shared["planes"],
-                                               corr_shared["lengths"])
-                    corr = corr_fin()
-                else:
-                    corr = correction_fn(cur, aln, damage,
-                                         params.corr_reads_ry_seq_id,
-                                         params.seq_id_thr, **shared)
+            if read_phase and shared and planes_out:
+                # corrected planes derive on the device from the
+                # correction kernel's own output (no re-pack or
+                # re-upload), and the correction pull is DEFERRED:
+                # the extension stage's first device pass dispatches
+                # against the derived planes while the corrected
+                # bytes still stream to the host
+                corr_fin, corr_shared = correction_fn(
+                    cur, aln, damage, params.corr_reads_ry_seq_id,
+                    params.seq_id_thr, return_planes=True, defer=True,
+                    **shared)
+                if corr_shared is not None and not params.ancient_unsafe:
+                    from .ops.extension_batch import ext_prologue
+                    ext_pro = ext_prologue(cur, aln, corr_shared["planes"],
+                                           corr_shared["lengths"])
+                corr = corr_fin()
+            else:
+                corr = per_query("corr", cur, lambda db, a: correction_fn(
+                    db, a, damage, params.corr_reads_ry_seq_id, seq_id,
+                    **shared))
+        if read_phase:
             with timer.time(f"read_assembly_{step}"):
                 # extension scores run over the CORRECTED sequences: the
                 # device-derived corrected planes serve when available,
                 # else pack fresh ones
-                nxt = read_assembly(corr, aln, damage, params.seq_id_thr,
-                                    params.ry_seq_id_thr,
-                                    params.likelihood_threshold,
-                                    params.random_align_penal,
-                                    params.excess_penal,
-                                    params.max_seq_len,
-                                    params.ancient_unsafe,
-                                    params.min_cov_safe,
-                                    prologue=ext_pro,
-                                    **(corr_shared if corr_shared
-                                       is not None
-                                       else _shared_planes(corr)))
+                nxt = per_query("ext", corr, lambda db, a: read_assembly(
+                    db, a, damage, params.seq_id_thr, params.ry_seq_id_thr,
+                    params.likelihood_threshold, params.random_align_penal,
+                    params.excess_penal, params.max_seq_len,
+                    params.ancient_unsafe, params.min_cov_safe,
+                    prologue=ext_pro,
+                    **(corr_shared if corr_shared is not None
+                       else _shared_planes(db))))
         else:
-            with timer.time(f"correction_{step}"):
-                corr = correction_fn(cur, aln, damage,
-                                     params.corr_reads_ry_seq_id,
-                                     params.corr_contig_seq_id, **shared)
             with timer.time(f"contig_merge_{step}"):
-                nxt = contig_merge(corr, aln, damage,
-                                   params.merge_seq_id_thr,
-                                   params.ry_seq_id_thr,
-                                   params.max_seq_len,
-                                   params.ancient_unsafe,
-                                   params.min_cov_safe)
+                nxt = per_query("merge", corr, lambda db, a: contig_merge(
+                    db, a, damage, params.merge_seq_id_thr,
+                    params.ry_seq_id_thr, params.max_seq_len,
+                    params.ancient_unsafe, params.min_cov_safe))
 
-        if ck.tmp:
+        writes = ck.tmp and (dist is None or dist.rank == 0)
+        if writes:
             nxt.save(ck.path(name), compressed=bool(params.compressed))
             ck.mark(name)
         log(f"step {step}: {'reads' if read_phase else 'contigs'} "
@@ -293,7 +333,7 @@ def nuclassemble(reads: SeqDB, params: Params, damage: DamageModel,
         if not read_phase and params.cycle_check:
             cyc, none_cyc = cyclecheck(cur, k=22, chop=params.chop_cycle,
                                        max_seq_len=params.max_seq_len)
-            if ck.tmp:
+            if writes:
                 cyc.save(ck.path(f"cycle_{step}"),
                          compressed=bool(params.compressed))
                 ck.mark(f"cycle_{step}")
@@ -303,6 +343,8 @@ def nuclassemble(reads: SeqDB, params: Params, damage: DamageModel,
                     cycle_ext[int(cyc.keys[j])] = bool(cyc.ext[j])
                 log(f"step {step}: {len(cyc)} circular contigs set aside")
                 cur = none_cyc
+        if dist is not None:
+            dist.barrier()
         # per-iteration progress + ETA (Debug::Progress analogue; ETA
         # scales the mean iteration cost over the remaining steps)
         done_n = step + 1
@@ -344,15 +386,18 @@ def nuclassemble(reads: SeqDB, params: Params, damage: DamageModel,
 def ancient_assemble(reads: SeqDB, params: Params, damage: DamageModel,
                      out_fasta: str | None = None, tmp_dir: str | None = None,
                      progress=None, device="cuda",
-                     timer: StageTimer | None = None):
+                     timer: StageTimer | None = None, dist=None,
+                     mesh_devices=None):
     """The `ancient_assemble` (guidedNuclAssemble) workflow: nuclassemble
     with the guided parameter overrides, linclust redundancy reduction,
     representative extraction, headers and FASTA output
     (data/guidedNuclAssemble.sh:177-225, src/workflow/GuidedNuclassembler.cpp).
 
     Returns the final SeqDB of representative contigs (key order), with
-    headers '<rank> len:<len>[ cycle:<0|1>]'.  `device` and `timer` as
-    in nuclassemble; linclust and the FASTA output run on the host.
+    headers '<rank> len:<len>[ cycle:<0|1>]'.  `device`, `timer`,
+    `dist` and `mesh_devices` as in nuclassemble; linclust and the FASTA
+    output run on the host, on rank 0 alone under `dist` (the other ranks
+    return None).
     """
     from .stages.linclust import linclust
 
@@ -366,7 +411,12 @@ def ancient_assemble(reads: SeqDB, params: Params, damage: DamageModel,
     assembly, cycle_keys, _ = nuclassemble(
         reads, p, damage,
         tmp_dir=os.path.join(tmp_dir, "nuclassembly_tmp") if tmp_dir else None,
-        progress=progress, device=device, timer=timer)
+        progress=progress, device=device, timer=timer, dist=dist,
+        mesh_devices=mesh_devices)
+    if dist is not None and dist.rank != 0:
+        # the epilogue (linclust + FASTA) is rank 0's, as only the
+        # reference's master writes merged results
+        return None
     log(f"nuclassemble: {len(assembly)} contigs, {len(cycle_keys)} circular")
 
     # redundancy reduction

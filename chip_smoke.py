@@ -47,6 +47,22 @@ Phases, each printing one line with the elapsed seconds:
   paired    R1/R2 FASTQ of that workload (R1 the first 60 bases, R2 the
             reverse complement of the last 60) through the CLI's paired-end
             form on the card and on the CPU: equal FASTA
+  world     the CLI on the 120k workload as one process and with --world 2
+            (two ranks sharing the card): equal FASTA, both walls; then the
+            15k workload through the CLI as one process and as two ranks
+            started here with CARPEDEAM_RANK/WORLD and CARPEDEAM_COORD (the
+            torch.distributed barrier), each with its own
+            CARPEDEAM_PROFILE_DIR: equal FASTA, and each rank's trace holds
+            device events of the correction kernel, which its launch counts
+            show too
+  mesh      rescorediagonal_sharded and correction_sharded over a mesh of
+            four shards on cuda:0 against the single-device --use-device 1
+            stages and the host oracles on the 120k run's first read-phase
+            and contig-phase SeqDBs (AlnDB text and corrected bytes equal,
+            seconds of each); the CLI with --use-device mesh on the 15k
+            workload (FASTA equal to the default route's); the device k-mer
+            sort (sort_kmer_entries_device) against np.lexsort on the
+            read-phase entry table (equal permutation, both times)
 
 The second-to-last line is a JSON object with each kernel's numbers; the
 last line is {"ok": true, "device": {...}}.  Any failed phase exits
@@ -62,6 +78,7 @@ import sys
 import time
 
 T0 = time.perf_counter()
+REPO = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12      # CUDA cores (non-tensor) f32 peak
 
@@ -1290,6 +1307,234 @@ def check_paired(db, rates, out_dir: str) -> None:
           "CPU")
 
 
+def write_fasta(db, path: str) -> None:
+    with open(path, "w") as fh:
+        for i in range(len(db)):
+            fh.write(f">r{i}\n{db.seq_str(i)}\n")
+
+
+def cli_command(reads: str, out: str, prefix: str, device: str) -> list:
+    """The CLI's ancient_assemble on `reads` into `out`, with a fresh tmp
+    dir beside it."""
+    return [sys.executable, "-m", "carpedeam_tpu_torch.cli",
+            "ancient_assemble", reads, out, out + ".tmp", "--ancient-damage",
+            prefix, "--device", device, "-v", "2"]
+
+
+def cli_assemble(label: str, reads: str, out: str, prefix: str, device: str,
+                 extra=(), env=None):
+    """cli_command run to its end; returns (FASTA bytes, seconds, its
+    stdout and stderr).  The CLI runs in a session of its own, so a
+    timeout kills the ranks that `--world` started too."""
+    import signal
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cli_command(reads, out, prefix, device)
+                            + list(extra), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=REPO,
+                            env=env, start_new_session=True)
+    try:
+        outs, err = proc.communicate(timeout=400)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{label}: CLI {' '.join(extra)} failed "
+          f"({proc.returncode}): {err[-2000:]}")
+    with open(out, "rb") as fh:
+        return fh.read(), secs, outs + err
+
+
+def stage_split(log: str, top: int = 14) -> dict:
+    """Seconds by stage and sub-step from a CLI log taken with
+    CARPEDEAM_SUBTIMING=1 (stage lines on stdout, `## name: secs` lines
+    on stderr), summed over iterations and over the ranks that wrote the
+    log; the `top` largest."""
+    import re
+    out: dict[str, float] = {}
+    for m in re.finditer(r"^(?:\[carpedeam-tpu-torch\] ([a-z_]+?)(?:_\d+)?"
+                         r"|## (\S+)): (\d+\.\d+)s", log, re.M):
+        name = m.group(1) or m.group(2)
+        out[name] = out.get(name, 0.0) + float(m.group(3))
+    return dict(sorted(((k, round(v, 3)) for k, v in out.items()),
+                       key=lambda kv: -kv[1])[:top])
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def correction_events(trace_path: str) -> int:
+    """Device events of the correction kernels (gate and kernel) in a
+    torch.profiler Chrome trace."""
+    with open(trace_path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    return sum(1 for e in events if e.get("cat") == "kernel"
+               and any(k in e.get("name", "")
+                       for k in DEVICE_KERNELS["correction"]))
+
+
+def check_world(reads, w15, rates, out_dir: str,
+                device: str) -> tuple[str, str, bytes]:
+    """Phase `world`: the CLI as one process and as a group of two ranks
+    on the card.  Returns (15k reads FASTA, damage prefix, the 15k
+    single-process FASTA) for phase `mesh`."""
+    prefix = os.path.join(out_dir, "world_damage_")
+    write_profiles(prefix, *rates)
+    fa = os.path.join(out_dir, "world_120k.fa")
+    write_fasta(reads, fa)
+    # stage and sub-step seconds in the log, each rank writing its lines
+    # whole (unbuffered)
+    env = dict(os.environ, CARPEDEAM_SUBTIMING="1", PYTHONUNBUFFERED="1")
+    one, s1, log1 = cli_assemble("world", fa,
+                                 os.path.join(out_dir, "w1.fasta"), prefix,
+                                 device, env=env)
+    two, s2, log2 = cli_assemble("world", fa,
+                                 os.path.join(out_dir, "w2.fasta"), prefix,
+                                 device, ["--world", "2"], env=env)
+    check(one == two, "the --world 2 FASTA differs from the single-process "
+          "FASTA")
+    check(one.count(b">") > 0, "the 120k CLI run wrote no contig")
+    phase("world", f"120k CLI: one process {s1:.2f} s, --world 2 on one "
+          f"card {s2:.2f} s (process start, read loading and build lookup "
+          f"included); FASTA byte-identical ({len(one)} bytes)")
+    phase("world", "one process, seconds by stage and sub-step: "
+          + json.dumps(stage_split(log1)))
+    phase("world", "--world 2, seconds summed over both ranks: "
+          + json.dumps(stage_split(log2)))
+
+    fa15 = os.path.join(out_dir, "world_15k.fa")
+    write_fasta(w15, fa15)
+    base15, s15, _ = cli_assemble("world", fa15,
+                                  os.path.join(out_dir, "r1.fasta"), prefix,
+                                  device)
+    out = os.path.join(out_dir, "r2.fasta")
+    coord = f"127.0.0.1:{free_port()}"
+    threads = str(max(1, (os.cpu_count() or 2) // 2))
+    cmd = cli_command(fa15, out, prefix, device)
+    prof = [os.path.join(out_dir, f"rank{r}_profile") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=REPO, env=dict(os.environ, CARPEDEAM_RANK=str(r),
+                           CARPEDEAM_WORLD="2", CARPEDEAM_COORD=coord,
+                           CARPEDEAM_PROFILE_DIR=prof[r],
+                           OMP_NUM_THREADS=threads)) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=400)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"rank {r} failed ({p.returncode}): "
+              f"{outs[r][-2000:]}")
+    with open(out, "rb") as fh:
+        check(fh.read() == base15, "the two-rank FASTA (CARPEDEAM_COORD) "
+              "differs from the single-process FASTA")
+    for r in range(2):
+        n_ev = correction_events(os.path.join(prof[r], "trace.json"))
+        with open(os.path.join(prof[r], "launches.json")) as fh:
+            launches = json.load(fh)
+        check(n_ev > 0, f"rank {r}'s trace holds no device event of the "
+              "correction kernel")
+        check(launches["correction"] > 0, f"rank {r} launched no "
+              "correction kernel")
+        phase("world", f"rank {r}: {n_ev} correction kernel device events "
+              f"in its trace; launches {json.dumps(launches)}")
+    phase("world", f"15k CLI: one process {s15:.2f} s, two profiled ranks "
+          f"(torch.distributed barrier at {coord}) {secs:.2f} s; FASTA "
+          f"byte-identical ({len(base15)} bytes)")
+    return fa15, prefix, base15
+
+
+def check_mesh(dbs: dict, params, damage, fa15: str, prefix: str,
+               base15: bytes, out_dir: str, device: str) -> None:
+    """Phase `mesh`: the sharded stages over four shards on one device
+    against the single-device stages and the host oracles, the CLI's
+    --use-device mesh, and the device k-mer sort."""
+    import numpy as np
+
+    from carpedeam_tpu_torch.kmer.matcher import (
+        BIT63, extract_selected_kmers_batched, kmermatcher,
+        sort_kmer_entries_device)
+    from carpedeam_tpu_torch.ops.correction_device import \
+        correction_device_stage
+    from carpedeam_tpu_torch.ops.rescore_device import rescorediagonal_device
+    from carpedeam_tpu_torch.parallel.mesh import (correction_sharded,
+                                                   make_mesh,
+                                                   rescorediagonal_sharded)
+    from carpedeam_tpu_torch.stages.correction import correction
+    from carpedeam_tpu_torch.stages.rescorediagonal import rescorediagonal
+
+    mesh = make_mesh([device] * 4)
+    kps, scale = params.kmers_per_sequence, params.kmers_per_sequence_scale
+    for name, (db, k, only_ext) in dbs.items():
+        pref = kmermatcher(db, k, kps, scale, only_ext, params.hash_shift)
+        seq_id = params.seq_id_thr if name == "read-phase" \
+            else params.corr_contig_seq_id
+        rargs = (seq_id, params.eval_thr, params.aln_len_thr)
+        cargs = (damage, params.corr_reads_ry_seq_id, seq_id)
+        runs = {}
+        for label, rfn, cfn in (
+                ("host", rescorediagonal, correction),
+                ("one device", lambda *a: rescorediagonal_device(
+                    *a, device=device), lambda *a: correction_device_stage(
+                    *a, device=device)),
+                ("4 shards", rescorediagonal_sharded(mesh),
+                 correction_sharded(mesh))):
+            t0 = time.perf_counter()
+            aln = rfn(db, pref, *rargs)
+            sync()
+            t1 = time.perf_counter()
+            corr = cfn(db, aln, *cargs)
+            sync()
+            runs[label] = (aln, corr, t1 - t0, time.perf_counter() - t1)
+        host_text = runs["host"][0].to_text()
+        for label in ("one device", "4 shards"):
+            aln, corr, _, _ = runs[label]
+            check(aln.to_text() == host_text, f"{label} rescore differs "
+                  f"from the host oracle on the {name} DB")
+            check(np.array_equal(corr.data, runs["host"][1].data),
+                  f"{label} correction differs from the host oracle on the "
+                  f"{name} DB")
+        phase("mesh", f"{name} DB ({len(db)} sequences, {len(pref.qkey)} "
+              f"pairs, {len(runs['host'][0])} alignments): AlnDB text and "
+              "corrected bytes equal; seconds rescore / correction: "
+              + "; ".join(f"{lb} {r[2]:.3f} / {r[3]:.3f}"
+                          for lb, r in runs.items()))
+
+    mesh15, s, _ = cli_assemble("mesh", fa15,
+                                os.path.join(out_dir, "m.fasta"), prefix,
+                                device, ["--use-device", "mesh"])
+    check(mesh15 == base15, "the --use-device mesh FASTA differs from the "
+          "default route's")
+    phase("mesh", f"15k CLI --use-device mesh (a mesh of every visible "
+          f"card) {s:.2f} s: FASTA byte-identical to the default route's")
+
+    db, k, _ = dbs["read-phase"]
+    ent = extract_selected_kmers_batched(db, k, kps, scale,
+                                         params.hash_shift)
+    t0 = time.perf_counter()
+    host = np.lexsort((ent["pos"], ent["id"],
+                       -ent["seq_len"].astype(np.int64),
+                       ent["kmer"] | BIT63))
+    host_s = time.perf_counter() - t0
+    sort_kmer_entries_device(ent, device)
+    dev_s = _best_seconds(lambda: sort_kmer_entries_device(ent, device), 3)
+    check(np.array_equal(sort_kmer_entries_device(ent, device), host),
+          "the device k-mer sort differs from np.lexsort")
+    phase("mesh", f"sort_kmer_entries_device on {len(host)} entries: "
+          f"permutation equal to np.lexsort's; {dev_s:.4f} s on the card "
+          f"(host->device copies included, best of 3) against "
+          f"{host_s:.4f} s for np.lexsort")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1437,6 +1682,10 @@ def main() -> int:
 
     # ---- paired --------------------------------------------------------
     check_paired(w15, rates, out_dir)
+
+    # ---- world, mesh ---------------------------------------------------
+    fa15, prefix, base15 = check_world(reads, w15, rates, out_dir, "cuda")
+    check_mesh(dbs, params, damage, fa15, prefix, base15, out_dir, "cuda")
 
     kernels = []
     for kname, k in _build.KERNELS.items():

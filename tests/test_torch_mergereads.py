@@ -96,9 +96,10 @@ def test_cli_paired_end_matches_jax_cli(tmp_path):
 
 @pytest.mark.parametrize("n_files", [0, 3])
 def test_cli_rejects_unpaired_file_lists(tmp_path, n_files, capsys):
-    """READS OUT TMP needs one reads file or whole pairs."""
+    """READS OUT TMP needs one reads file or whole pairs: a bad
+    parameter, exit 1."""
     files = [str(tmp_path / f"r{i}.fq") for i in range(n_files)]
     rc = cli.main(["ancient_assemble", *files, str(tmp_path / "o.fa"),
                    str(tmp_path / "t"), "--device", "cpu"])
-    assert rc == 2
+    assert rc == 1
     assert "R1 R2" in capsys.readouterr().err

@@ -111,15 +111,27 @@ def test_auto_and_pallas_run_the_kernel_path(monkeypatch, use_device):
 
 
 @pytest.mark.parametrize("entry", ["nuclassemble", "ancient_assemble"])
-def test_use_device_without_a_port_raises(entry):
-    """--use-device mesh (the sharded stages) has no implementation in the
-    port: each entry point raises ValueError instead of running another
-    implementation."""
-    db, _, _, tdm = reads_world(61, 200)
-    p = Params(use_device="mesh", num_iterations=1,
-               num_iterations_reads=1, min_contig_len=0)
-    with pytest.raises(ValueError, match="no implementation"):
-        getattr(pipeline, entry)(db, p, tdm, device="cpu")
+def test_use_device_mesh_matches_jax_host_route(tmp_path, entry):
+    """--use-device mesh (the sharded stages, on a one-device CPU mesh
+    for device="cpu") gives each entry point the JAX host route's
+    result."""
+    db, jdb, jdm, tdm = reads_world(61, 1500)
+    jp, tp = params_pair(use_device="0", num_iterations=2,
+                         num_iterations_reads=1, min_contig_len=100)
+    mesh = tp.copy(use_device="mesh")
+    if entry == "nuclassemble":
+        ref, ref_cyc, _ = JP.nuclassemble(jdb, jp, jdm)
+        mine, cyc, _ = pipeline.nuclassemble(db, mesh, tdm, device="cpu")
+        assert len(mine) > 10
+        assert cyc == ref_cyc
+        assert same_seqs(mine, ref)
+    else:
+        JP.ancient_assemble(jdb, jp, jdm, out_fasta=str(tmp_path / "j.fa"))
+        rep = pipeline.ancient_assemble(db, mesh, tdm, device="cpu",
+                                        out_fasta=str(tmp_path / "p.fa"))
+        assert len(rep) > 3
+        assert (tmp_path / "p.fa").read_bytes() == \
+            (tmp_path / "j.fa").read_bytes()
 
 
 def test_checkpoints_resume_to_the_same_result(tmp_path):
@@ -144,6 +156,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from carpedeam_tpu_torch.ops import (correction_device,\n"
         "    kmer_device, rescore_device)\n"
         "from carpedeam_tpu_torch.stages import linclust, mergereads\n"
+        "from carpedeam_tpu_torch.parallel import (distributed, driver,\n"
+        "    mesh)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'carpedeam_tpu' or m.startswith('carpedeam_tpu.')]\n"
         "print(bad)\n"
@@ -179,6 +193,37 @@ def test_cli_runs_on_the_cpu(tmp_path):
                    "--num-iter-reads-only", "1", "--min-contig-len", "1",
                    "-v", "0"])
     assert rc == 0 and out.read_bytes().startswith(b">0 len:")
+
+
+@pytest.mark.parametrize("case", ["bad-parameter", "missing-input"])
+def test_cli_errors_exit_as_the_jax_cli_does(tmp_path, capsys, case):
+    """A flag value params_from_args rejects, and a reads file that does
+    not exist: both CLIs exit 1 with the same one-line message after
+    their program name."""
+    from carpedeam_tpu import cli as jax_cli
+    from carpedeam_tpu_torch import cli
+    reads = tmp_path / "reads.fa"
+    if case == "bad-parameter":
+        reads.write_text(">r0\nACGTACGTAC\n")
+        extra = ["--num-iterations", "0"]
+    else:
+        reads = tmp_path / "missing.fq"
+        extra = []
+    argv = ["ancient_assemble", str(reads), str(tmp_path / "o.fa"),
+            str(tmp_path / "t"), *extra]
+    codes, msgs = [], []
+    for prog, main, more in (("carpedeam-tpu", jax_cli.main, []),
+                             ("carpedeam-tpu-torch", cli.main,
+                              ["--device", "cpu"])):
+        codes.append(main(argv + more))
+        err = capsys.readouterr().err.strip().splitlines()
+        assert len(err) == 1 and err[0].startswith(prog + ": "), err
+        msgs.append(err[0][len(prog) + 2:])
+    assert codes == [1, 1]
+    assert msgs[0] == msgs[1]
+    assert msgs[0].startswith("invalid parameter: --num-iterations"
+                              if case == "bad-parameter"
+                              else "input not found: ")
 
 
 def test_convert_from_reference_round_trip_and_checks():
