@@ -12,10 +12,14 @@ Layer map:
   kmer/     k-mer packing, xxh64 subsampling, host kmermatcher
   ops/      device planes and the kernel wrappers (*_cuda.py), each with
             a plain PyTorch version used for CPU tensors
-  stages/   pipeline stages (host oracles and splicing)
+  ops/coding_mlp  the kerasify coding MLP (nn.Linear layers)
+  stages/   pipeline stages (host oracles and splicing) and the
+            protein-guided extension (guided_assembly)
   parallel/ multi-process ranks (CARPEDEAM_RANK/WORLD, --world) and the
             device-sharded stages (--use-device mesh)
   pipeline  the nuclassemble / ancient_assemble drivers
+  cli       every command of the JAX package's CLI: ancient_assemble,
+            nuclassemble and the stage subcommands on saved DBs
 """
 
 __version__ = "0.1.0"

@@ -13,6 +13,11 @@ tables the kernels read, and the run parameters:
 `from_reference` builds the port's DamageModel and Params from those
 arrays, so both packages compute from the same numbers; the optional
 kernel tables are checked against the ones the port derives.
+
+The one model with weights is the kerasify coding MLP:
+`kerasify_layers_from_jax` carries the JAX package's
+`KerasifyModel.layers` (numpy weights and biases, activation codes, in
+file order) across into the port's `ops.coding_mlp.KerasifyModel`.
 """
 from __future__ import annotations
 
@@ -77,3 +82,29 @@ def from_reference(arrays: dict[str, np.ndarray], params: dict
     if "explicit" in kw:
         kw["explicit"] = frozenset(kw["explicit"])
     return damage, Params(**kw)
+
+
+def kerasify_layers_from_jax(layers) -> list:
+    """The port's kerasify layer list from the JAX package's
+    `KerasifyModel.layers`: ("dense", W, b, act), ("act", act),
+    ("flatten",) and ("elu", alpha) in file order; weights and biases
+    copied as float32.  Raises ValueError on an unknown layer or a dense
+    layer whose shapes disagree."""
+    out = []
+    for kind, *rest in layers:
+        if kind == "dense":
+            w, b, act = rest
+            w = np.array(w, dtype=np.float32)
+            b = np.array(b, dtype=np.float32)
+            if w.ndim != 2 or b.shape != (w.shape[1],):
+                raise ValueError(f"dense layer W {w.shape}, b {b.shape}")
+            out.append(("dense", w, b, int(act)))
+        elif kind == "act":
+            out.append(("act", int(rest[0])))
+        elif kind == "elu":
+            out.append(("elu", float(rest[0])))
+        elif kind == "flatten":
+            out.append(("flatten",))
+        else:
+            raise ValueError(f"unknown kerasify layer {kind!r}")
+    return out

@@ -142,6 +142,29 @@ def _pick_stage_impls(use_device: str, device, mesh_devices=None):
             partial(correction_cuda, device=dev), dev, True)
 
 
+def planes_prefetch(db: SeqDB, dev):
+    """The shared sequence planes of `db` on `dev`, packed and uploaded
+    asynchronously (ops/planes.PlanesPrefetch), or None when the stages
+    take none: `dev` None (the host oracles, the mesh stages) or an empty
+    DB.  Plane width is capped at 512: the short-read bulk stays
+    device-resident in every phase; stages route records touching longer
+    sequences to wider per-level planes or the host oracles."""
+    if dev is None or not len(db):
+        return None
+    from .ops.planes import PlanesPrefetch
+    max_len = bucket_len(min(512, int(db.lengths.max())))
+    return PlanesPrefetch(db, max_len=max_len, device=dev)
+
+
+def shared_from(pf) -> dict:
+    """{"planes", "lengths"} keyword arguments of the device stages from a
+    planes_prefetch result ({} for None)."""
+    if pf is None:
+        return {}
+    planes, lengths = pf.get()
+    return {"planes": planes, "lengths": lengths}
+
+
 def nuclassemble(reads: SeqDB, params: Params, damage: DamageModel,
                  tmp_dir: str | None = None, progress=None, device="cuda",
                  timer: StageTimer | None = None, dist=None,
@@ -189,28 +212,14 @@ def nuclassemble(reads: SeqDB, params: Params, damage: DamageModel,
     def _planes_prefetch(db):
         """Start the per-iteration plane pack + H2D before the (host)
         kmermatcher runs; the copy overlaps the k-mer scan and
-        `_shared_from` below collects the finished planes.  The host
-        oracles, the mesh stages and the ranks of a group take no
-        planes."""
-        if dev is None or dist is not None or not len(db):
-            return None
-        from .ops.planes import PlanesPrefetch
-        # plane width is capped at 512: the short-read bulk stays device-
-        # resident in every phase; stages route records touching longer
-        # sequences to wider per-bucket planes or the host oracles
-        max_len = bucket_len(min(512, int(db.lengths.max())))
-        return PlanesPrefetch(db, max_len=max_len, device=dev)
-
-    def _shared_from(pf):
-        if pf is None:
-            return {}
-        planes, lengths = pf.get()
-        return {"planes": planes, "lengths": lengths}
+        `shared_from` collects the finished planes.  The ranks of a group
+        take no planes."""
+        return None if dist is not None else planes_prefetch(db, dev)
 
     def _shared_planes(db):
         """Pack + upload the sequence planes once; the device stages then
         reuse the same device-resident tensors."""
-        return _shared_from(_planes_prefetch(db))
+        return shared_from(_planes_prefetch(db))
     if timer is None:
         timer = StageTimer(
             log if (params.verbosity >= 4
@@ -262,7 +271,7 @@ def nuclassemble(reads: SeqDB, params: Params, damage: DamageModel,
                     dist, cur, k, params.kmers_per_sequence,
                     params.kmers_per_sequence_scale, only_ext,
                     params.hash_shift, step)
-        shared = _shared_from(planes_pf)
+        shared = shared_from(planes_pf)
         with timer.time(f"rescorediagonal_{step}"):
             if dist is None:
                 aln = rescore_fn(cur, pref, seq_id, params.eval_thr,

@@ -47,6 +47,20 @@ Phases, each printing one line with the elapsed seconds:
   paired    R1/R2 FASTQ of that workload (R1 the first 60 bases, R2 the
             reverse complement of the last 60) through the CLI's paired-end
             form on the card and on the CPU: equal FASTA
+  stages    the stage subcommands in-process through the CLI on the 120k
+            workload written as FASTQ: createdb, kmermatcher -k 20,
+            rescorediagonal, ancient_correction, ancient_read_assemble,
+            then kmermatcher, rescorediagonal and ancient_contig_merge on
+            the read-phase output, createhdb, convert2fasta, cyclecheck;
+            on the card (the rescore, correction, window and consensus
+            kernels must launch and every device stage run records on the
+            card), twice with --use-device 0 (no launch), then on the
+            card again: every output file equal; then the 15k workload's
+            chain on the card and on the CPU, equal; seconds of each
+            subcommand on each route
+  mlp       the kerasify coding MLP (57x32x64x1, random weights from a
+            seed) on 120,000 feature rows on the card against the CPU
+            within rtol 2e-5, atol 2e-6, with its times
   world     the CLI on the 120k workload as one process and with --world 2
             (two ranks sharing the card): equal FASTA, both walls; then the
             15k workload through the CLI as one process and as two ranks
@@ -64,7 +78,9 @@ Phases, each printing one line with the elapsed seconds:
             sort (sort_kmer_entries_device) against np.lexsort on the
             read-phase entry table (equal permutation, both times)
 
-The second-to-last line is a JSON object with each kernel's numbers; the
+The second-to-last line is a JSON object with each kernel's numbers
+(`launches` on the assemble run, `stage_launches` on the stage chain) and
+the `stages` and `mlp` phases' readings; the
 last line is {"ok": true, "device": {...}}.  Any failed phase exits
 non-zero without that line.
 """
@@ -1313,6 +1329,249 @@ def write_fasta(db, path: str) -> None:
             fh.write(f">r{i}\n{db.seq_str(i)}\n")
 
 
+def write_fastq(db, path: str) -> None:
+    with open(path, "w") as fh:
+        for i in range(len(db)):
+            s = db.seq_str(i)
+            fh.write(f"@r{i}\n{s}\n+\n{'I' * len(s)}\n")
+
+
+def dir_contents(path: str) -> dict:
+    """name -> contents of every file in `path`: an .npz checkpoint
+    (SeqDB, PrefDB, AlnDB) as {member: bytes}, since the zip container
+    stamps each member with its write time; any other file (FASTA,
+    .headers) as its bytes."""
+    import zipfile
+    out = {}
+    for name in sorted(os.listdir(path)):
+        full = os.path.join(path, name)
+        if name.endswith(".npz"):
+            with zipfile.ZipFile(full) as z:
+                out[name] = {m: z.read(m) for m in z.namelist()}
+        else:
+            with open(full, "rb") as fh:
+                out[name] = fh.read()
+    return out
+
+
+# the kernels the stage subcommands launch on the kernel route
+STAGE_KERNELS = ("rescore_pairs", "correction", "window_identity",
+                 "consensus_likelihood")
+
+
+def stage_chain(fq: str, prefix: str, work: str, device: str,
+                extra=()) -> dict:
+    """The stage subcommands, in-process through the port's cli.main, on
+    FASTQ `fq` with the damage profiles at `prefix`: createdb,
+    kmermatcher -k 20, rescorediagonal, ancient_correction,
+    ancient_read_assemble; kmermatcher (contig k 22), rescorediagonal
+    and ancient_contig_merge on the read-phase output; createhdb,
+    convert2fasta, and cyclecheck on that FASTA.  Outputs in `work`
+    (emptied first); `extra` goes to the subcommands that take --device.
+    Returns the seconds of each step (the card synchronised after each)."""
+    import io
+    import shutil
+
+    import torch
+
+    from carpedeam_tpu_torch import cli
+    shutil.rmtree(work, ignore_errors=True)     # dir_contents reads it all
+    os.makedirs(work)
+
+    def p(name):
+        return os.path.join(work, name)
+    dev = ["-v", "2", "--device", device, *extra]
+    dmg = ["--ancient-damage", prefix]
+    steps = [
+        ("createdb", [fq, p("reads")]),
+        ("kmermatcher", [p("reads"), p("pref"), "-k", "20",
+                         "--include-only-extendable", "0", *dev]),
+        ("rescorediagonal", [p("reads"), p("pref"), p("aln"), *dev]),
+        ("ancient_correction", [p("reads"), p("aln"), p("corr"), *dmg,
+                                *dev]),
+        ("ancient_read_assemble", [p("corr"), p("aln"), p("asm"), *dmg,
+                                   *dev]),
+        ("kmermatcher", [p("asm"), p("pref2"), *dev]),
+        ("rescorediagonal", [p("asm"), p("pref2"), p("aln2"), *dev]),
+        ("ancient_contig_merge", [p("asm"), p("aln2"), p("cm"), *dmg,
+                                  "-v", "2"]),
+        ("createhdb", [p("cm"), p("cm_h")]),
+        ("convert2fasta", [p("cm_h"), p("cm.fa")]),
+        ("cyclecheck", [p("cm.fa"), p("cyc.fa")]),
+    ]
+    secs = {}
+    for command, args in steps:
+        label = command if command not in secs else f"{command}_contigs"
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = cli.main([command, *args])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+        check(rc == 0, f"{command} {' '.join(extra)} on {device} failed "
+              f"({rc}): {log.getvalue()[-2000:]}")
+    return secs
+
+
+def check_stages(reads, w15, rates, out_dir: str) -> dict:
+    """Phase `stages`: the stage chain (stage_chain) on the 120k workload
+    on the card, with the launch counts and coverage set to 0 just before
+    and read just after: the rescore, correction, window and consensus
+    kernels launched and every device stage ran records on the card; the
+    same chain twice with --use-device 0 (the host oracles; no launch),
+    then on the card again; the 15k workload's chain on the card and on
+    the CPU.  Every output file equal across the runs.  Returns seconds
+    (two runs a route), launches and coverage."""
+    from carpedeam_tpu_torch import _build, utils
+    prefix = os.path.join(out_dir, "stages_damage_")
+    write_profiles(prefix, *rates)
+    fq = os.path.join(out_dir, "stages_120k.fq")
+    write_fastq(reads, fq)
+    _build.reset_launch_counts()
+    utils.coverage_reset()
+    card = stage_chain(fq, prefix, os.path.join(out_dir, "stages_cuda"),
+                       "cuda")
+    launches = _build.launch_counts()
+    coverage = utils.coverage_summary()
+    for k in STAGE_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched by the stage "
+              "subcommands")
+    for stage in ("rescorediagonal", "correction", "extension_scoring"):
+        d = coverage.get(stage)
+        check(d is not None and d["device"] > 0,
+              f"stage subcommand {stage} ran no records on the card")
+    # then host, host, card: the card and host routes in turns (ABBA),
+    # so neither has the warmer caches
+    _build.reset_launch_counts()
+    host = [stage_chain(fq, prefix, os.path.join(out_dir, f"stages_host{i}"),
+                        "cuda", ("--use-device", "0")) for i in range(2)]
+    check(all(n == 0 for n in _build.launch_counts().values()),
+          "--use-device 0 launched a kernel")
+    card = [card, stage_chain(fq, prefix,
+                              os.path.join(out_dir, "stages_cuda1"), "cuda")]
+    files = dir_contents(os.path.join(out_dir, "stages_cuda"))
+    for other in ("stages_host0", "stages_host1", "stages_cuda1"):
+        check(files == dir_contents(os.path.join(out_dir, other)),
+              f"the stage chain's outputs differ between the card and "
+              f"{other}")
+    phase("stages", f"120k chain: {len(files)} output files equal on the "
+          "card and on the host route (--use-device 0), twice each")
+    phase("stages", "launches " + json.dumps(launches))
+    phase("stages", "coverage " + json.dumps(coverage))
+    for label, runs in (("card", card), ("host route", host)):
+        phase("stages", f"seconds on the {label}, two runs " + json.dumps(
+            {k: [round(r[k], 3) for r in runs] for k in runs[0]}))
+    fq15 = os.path.join(out_dir, "stages_15k.fq")
+    write_fastq(w15, fq15)
+    small = {}
+    for dev in ("cuda", "cpu"):
+        small[dev] = stage_chain(fq15, prefix,
+                                 os.path.join(out_dir, f"stages15_{dev}"),
+                                 dev)
+    files15 = dir_contents(os.path.join(out_dir, "stages15_cuda"))
+    check(files15 == dir_contents(os.path.join(out_dir, "stages15_cpu")),
+          "the 15k stage chain's outputs differ between the card and the "
+          "CPU")
+    phase("stages", f"15k chain: {len(files15)} output files equal on the "
+          f"card ({sum(small['cuda'].values()):.2f} s) and on the CPU "
+          f"({sum(small['cpu'].values()):.2f} s)")
+    return {"card_s": card, "host_s": host, "launches": launches,
+            "coverage": coverage, "cpu15k_s": small["cpu"],
+            "card15k_s": small["cuda"]}
+
+
+def write_kerasify(path: str, layers) -> None:
+    """A kerasify model file (little-endian, kerasify's keras_model.cpp
+    layout): ("dense", W (in, out), b, activation), ("act", activation),
+    ("flatten",) and ("elu", alpha) in order."""
+    import struct
+
+    import numpy as np
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<I", len(layers)))
+        for kind, *rest in layers:
+            if kind == "dense":
+                w, b, act = rest
+                fh.write(struct.pack("<IIII", 1, *w.shape, len(b)))
+                fh.write(np.asarray(w, "<f4").tobytes())
+                fh.write(np.asarray(b, "<f4").tobytes())
+                fh.write(struct.pack("<I", act))
+            elif kind == "act":
+                fh.write(struct.pack("<II", 5, rest[0]))
+            elif kind == "flatten":
+                fh.write(struct.pack("<I", 3))
+            else:
+                fh.write(struct.pack("<If", 4, rest[0]))
+
+
+def coding_layers(seed: int) -> list:
+    """Random 57x32x64x1 kerasify layers (relu, relu, sigmoid), the shape
+    of the bundled predict_coding_acc9743_57x32x64 model."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for n_in, n_out, act in ((57, 32, 2), (32, 64, 2), (64, 1, 4)):
+        w = rng.normal(0.0, 1.0 / np.sqrt(n_in), (n_in, n_out))
+        out.append(("dense", w.astype(np.float32),
+                    rng.normal(0.0, 0.1, n_out).astype(np.float32), act))
+    return out
+
+
+MLP_RTOL, MLP_ATOL = 2e-5, 2e-6
+
+
+def check_mlp(out_dir: str) -> dict:
+    """Phase `mlp`: the kerasify coding MLP (57x32x64x1) on 120,000
+    feature rows on the card against the CPU, within rtol 2e-5 and atol
+    2e-6; the forward pass's time on the card (CUDA events) and on the
+    CPU, and coding_scores's (file load, copies and forward)."""
+    import numpy as np
+    import torch
+
+    from carpedeam_tpu_torch.ops.coding_mlp import (KerasifyModel,
+                                                    coding_scores)
+    path = os.path.join(out_dir, "coding_57x32x64.model")
+    write_kerasify(path, coding_layers(5))
+    rng = np.random.default_rng(6)
+    x = ((rng.random((120_000, 57)) - 0.5) * 0.2).astype(np.float32)
+    model = KerasifyModel.load(path)
+    net_cpu, net_gpu = model.module("cpu"), model.module("cuda")
+    xg = torch.from_numpy(x).cuda()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want = net_cpu(torch.from_numpy(x)).numpy()
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        got = net_gpu(xg).cpu().numpy()
+        card_ms = cuda_ms(lambda: net_gpu(xg), 20)
+    t0 = time.perf_counter()
+    scores = coding_scores(path, x)
+    scores_ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.abs(got.astype(np.float64) - want).max())
+    # the least time: each input, weight and output byte once, and the
+    # dense layers' multiply-adds (the activations are under it) at the
+    # f32 rate outside the tensor cores
+    dense = [(w, b) for kind, w, b, _ in model.layers if kind == "dense"]
+    nbytes = x.nbytes + got.nbytes + sum(w.nbytes + b.nbytes
+                                         for w, b in dense)
+    ms_bound, bound_by = bound(nbytes, sum(2 * len(x) * w.size
+                                           for w, _ in dense))
+    check(got.shape == (120_000, 1) and np.isfinite(got).all(),
+          "MLP output shape or values")
+    check(bool(np.allclose(got, want, rtol=MLP_RTOL, atol=MLP_ATOL)),
+          f"MLP on the card differs from the CPU (max abs err {err})")
+    check(bool(np.allclose(scores, want, rtol=MLP_RTOL, atol=MLP_ATOL)),
+          "coding_scores on the card differs from the CPU")
+    phase("mlp", f"120,000 x 57 rows: card == CPU within rtol {MLP_RTOL} "
+          f"atol {MLP_ATOL} (max abs err {err:.3g}); forward {card_ms:.4f} "
+          f"ms on the card (CUDA events; bound {ms_bound:.4f} ms by "
+          f"{bound_by}), {cpu_ms:.2f} ms on the CPU; coding_scores "
+          f"{scores_ms:.2f} ms")
+    return {"rows": 120_000, "max_abs_err": err, "ms": card_ms,
+            "bound_ms": ms_bound, "bound_by": bound_by, "cpu_ms": cpu_ms,
+            "coding_scores_ms": scores_ms}
+
+
 def cli_command(reads: str, out: str, prefix: str, device: str) -> list:
     """The CLI's ancient_assemble on `reads` into `out`, with a fresh tmp
     dir beside it."""
@@ -1683,6 +1942,10 @@ def main() -> int:
     # ---- paired --------------------------------------------------------
     check_paired(w15, rates, out_dir)
 
+    # ---- stages, mlp ---------------------------------------------------
+    stages = check_stages(reads, w15, rates, out_dir)
+    mlp = check_mlp(out_dir)
+
     # ---- world, mesh ---------------------------------------------------
     fa15, prefix, base15 = check_world(reads, w15, rates, out_dir, "cuda")
     check_mesh(dbs, params, damage, fa15, prefix, base15, out_dir, "cuda")
@@ -1694,6 +1957,7 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": launches[kname],
+            "stage_launches": stages["launches"][kname],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main_case["ms"], "wrapper_ms": main_case["wrapper_ms"],
             "plain_ms": main_case["plain_ms"],
@@ -1702,7 +1966,9 @@ def main() -> int:
             "library_ms": main_case["library_ms"],
             "cases": cases})
     phase("done", f"all phases passed in {time.perf_counter() - T0:.1f} s")
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi_line, flush=True)
+    print(json.dumps({"kernels": kernels, "stages": stages, "mlp": mlp}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -76,3 +76,46 @@ def same_seqs(a, b) -> bool:
         int(a.keys[i]) == int(b.keys[i])
         and bytes(a.seq_bytes(i)) == bytes(b.seq_bytes(i))
         for i in range(len(a)))
+
+
+_CODON = {a + b + c: aa for (a, b, c), aa in zip(
+    ((a, b, c) for a in "TCAG" for b in "TCAG" for c in "TCAG"),
+    "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG")}
+
+
+def translate(s: str) -> str:
+    """Frame-0 translation in the standard genetic code ('*' = stop)."""
+    return "".join(_CODON[s[i:i + 3]] for i in range(0, len(s) - 2, 3))
+
+
+def guided_world(seed: int, n: int = 20, genome_len: int = 600):
+    """Nucleotide fragments for guidedassembleresult: `n` overlapping
+    pieces (60-150 bases) of a random genome without T (so no stop codon
+    by chance), about a quarter of them with a stop codon added at the
+    start and a quarter at the end.  Returns the sequences (str)."""
+    rng = np.random.default_rng(seed)
+    genome = "".join("ACG"[b] for b in rng.integers(0, 3, genome_len))
+    seqs = []
+    for _ in range(n):
+        ln = int(rng.integers(60, 151))
+        s0 = int(rng.integers(0, genome_len - ln))
+        s = genome[s0:s0 + ln]
+        u = rng.random()
+        if u < 0.25:
+            s = "TAA" + s[3:]
+        elif u < 0.5:
+            s = s[:-3] + "TGA"
+        seqs.append(s)
+    return seqs
+
+
+def same_outputs(mine, ref) -> int:
+    """Assert that directories `mine` and `ref` hold the same files with
+    equal contents (chip_smoke.dir_contents: .npz checkpoints member by
+    member); returns the number of files."""
+    import chip_smoke
+    a, b = chip_smoke.dir_contents(mine), chip_smoke.dir_contents(ref)
+    assert sorted(a) == sorted(b)
+    for name in a:
+        assert a[name] == b[name], name
+    return len(a)
