@@ -4,9 +4,11 @@ The port's twin of tools/make_workload.generate: reads sampled uniformly
 from a random genome at a target coverage (lengths 35-120, mean 51, an
 exponential tail as in the reference's example data), reverse-complemented
 on random strands, deaminated with position-dependent C->T (5' end) and
-G->A (3' end) rates, plus uniform sequencing error.  The reads come back
-as a SeqDB in createdb's shuffled record order (32 round-robin splits,
-SeqDB.from_fastx), with the damage profile rates that made them.
+G->A (3' end) rates, plus uniform sequencing error.  With `species` > 1
+the reads come from a mock community of that many random genomes with
+log-skewed abundances, as the tool's `--species` draws them.  The reads
+come back as a SeqDB in createdb's shuffled record order (32 round-robin
+splits, SeqDB.from_fastx), with the damage profile rates that made them.
 """
 from __future__ import annotations
 
@@ -40,8 +42,14 @@ def profile_rates(ct5=CT5, ga3=GA3, background=BACKGROUND):
 
 def generate(seed: int, n_reads: int, coverage: float = 20.0,
              min_len: int = 35, max_len: int = 120, mean_len: float = 51.0,
-             seq_err: float = 0.001, ct5=CT5, ga3=GA3):
-    """Returns (reads SeqDB, (sub5p, sub3p) profile rates)."""
+             seq_err: float = 0.001, ct5=CT5, ga3=GA3, species: int = 1):
+    """Returns (reads SeqDB, (sub5p, sub3p) profile rates).
+
+    `species` > 1 draws a mock ancient community (BASELINE.json configs
+    3 and 4): independent random genomes with abundance weights
+    w_i ~ 2^(-i/2), each read assigned to a species by `rng.choice`, each
+    genome sized so that its own reads reach `coverage`; the draws come
+    in tools/make_workload.py's order, so a seed gives the tool's reads."""
     rng = np.random.default_rng(seed)
     ct5 = np.asarray(ct5, dtype=np.float64)
     ga3 = np.asarray(ga3, dtype=np.float64)
@@ -49,9 +57,21 @@ def generate(seed: int, n_reads: int, coverage: float = 20.0,
         min_len + rng.exponential(mean_len - min_len, n_reads),
         max_len).astype(np.int64)
     total = int(lengths.sum())
-    genome_len = max(int(total / coverage), max_len + 1)
-    genome = BASES[rng.integers(0, 4, genome_len)]
-    starts = rng.integers(0, genome_len - lengths + 1)
+    if species <= 1:
+        genome_len = max(int(total / coverage), max_len + 1)
+        genome = BASES[rng.integers(0, 4, genome_len)]
+        starts = rng.integers(0, genome_len - lengths + 1)
+    else:
+        w = 2.0 ** (-0.5 * np.arange(species))
+        w /= w.sum()
+        sp_of = rng.choice(species, size=n_reads, p=w)
+        res_per = np.bincount(sp_of, weights=lengths,
+                              minlength=species).astype(np.int64)
+        glens = np.maximum((res_per / coverage).astype(np.int64),
+                           max_len + 1)
+        goff = np.concatenate([[0], np.cumsum(glens)])
+        genome = BASES[rng.integers(0, 4, int(goff[-1]))]
+        starts = goff[sp_of] + rng.integers(0, glens[sp_of] - lengths + 1)
     minus = rng.integers(0, 2, n_reads).astype(bool)
 
     offsets = np.concatenate([[0], np.cumsum(lengths)])[:-1]

@@ -2,6 +2,8 @@
 """Smoke run of carpedeam_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --deep N     # phases device, build and deep alone,
+                                       # on N reads
 
 Phases, each printing one line with the elapsed seconds:
 
@@ -77,10 +79,20 @@ Phases, each printing one line with the elapsed seconds:
             workload (FASTA equal to the default route's); the device k-mer
             sort (sort_kmer_entries_device) against np.lexsort on the
             read-phase entry table (equal permutation, both times)
+  deep      the deep long-contig configuration (BASELINE.json config 4:
+            --unsafe 1 --min-merge-seq-id 0.97 --num-iterations 12
+            --split-memory-limit 128M) on a 10-species mock community
+            (seed 3, coverage 20), ancient_assemble on the kernel route
+            and the host route (--use-device 0): equal FASTA; window and
+            consensus launch on neither, rescore and correction in both
+            phases of the kernel route; per ladder level the launches,
+            the records on the card and those past the top level, the
+            longest sequence after each iteration, the sub-timers; each
+            level above the first against its plain version, timed
 
 The second-to-last line is a JSON object with each kernel's numbers
 (`launches` on the assemble run, `stage_launches` on the stage chain) and
-the `stages` and `mlp` phases' readings; the
+the `stages`, `mlp` and `deep` phases' readings; the
 last line is {"ok": true, "device": {...}}.  Any failed phase exits
 non-zero without that line.
 """
@@ -113,22 +125,32 @@ def check(cond: bool, msg: str) -> None:
 
 
 @contextlib.contextmanager
+def patched(module, name: str, make):
+    """module.<name> replaced by make(the function) inside the block."""
+    fn = getattr(module, name)
+    setattr(module, name, make(fn))
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def cloned(args) -> tuple:
+    import torch
+    return tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                 for a in args)
+
+
 def capture(module, name: str, calls: list):
     """Record the positional arguments of every call of module.<name>
     (tensors are cloned) while the drivers run; the call itself goes
     through."""
-    import torch
-    fn = getattr(module, name)
-
-    def wrapper(*args, **kw):
-        calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                           for a in args))
-        return fn(*args, **kw)
-    setattr(module, name, wrapper)
-    try:
-        yield calls
-    finally:
-        setattr(module, name, fn)
+    def make(fn):
+        def wrapper(*args, **kw):
+            calls.append(cloned(args))
+            return fn(*args, **kw)
+        return wrapper
+    return patched(module, name, make)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -369,6 +391,29 @@ def kernel_inputs(damage, params, device, reads):
     return cap
 
 
+def kernel_row(label: str, name: str, case: str, fn, ref, nbytes: int,
+               ops: float, err, note: str = "") -> dict:
+    """One kernel case's numbers, printed under phase `label`: the kernel's
+    device time, the wrapper's and the plain version's times by CUDA
+    events, and the bound of these inputs' bytes and operations."""
+    ms, timer = kernel_ms(fn, DEVICE_KERNELS.get(name, (f"{name}_kernel",)),
+                          20)
+    wrapper_ms = cuda_ms(fn, 20)
+    plain_ms = cuda_ms(ref, 3)
+    b_ms, b_by = bound(nbytes, ops)
+    phase(label, f"{name} [{case}] ok: kernel {ms:.4f} ms "
+          f"({timer}; wrapper {wrapper_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms by {b_by}: {nbytes} bytes, {ops:.0f} "
+          f"operations{note}; max_abs_err {err})")
+    # no single PyTorch call computes any of these functions, so
+    # library_ms stays null (see PERF.md)
+    return {"case": case, "ms": ms, "timer": timer,
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "max_abs_err": err, "bytes": nbytes, "ops": ops}
+
+
 def check_kernels(damage, params, device, reads) -> dict:
     """Each kernel against its plain version on the captured inputs, with
     times and bounds; returns {kernel: {"cases": [...]}}."""
@@ -379,24 +424,8 @@ def check_kernels(damage, params, device, reads) -> dict:
     rows = {}
 
     def record(name, case, fn, ref, nbytes, ops, err, note=""):
-        ms, timer = kernel_ms(fn, DEVICE_KERNELS.get(name,
-                                                     (f"{name}_kernel",)), 20)
-        wrapper_ms = cuda_ms(fn, 20)
-        plain_ms = cuda_ms(ref, 3)
-        b_ms, b_by = bound(nbytes, ops)
-        row = rows.setdefault(name, {"cases": []})
-        # no single PyTorch call computes any of these functions, so
-        # library_ms stays null (see PERF.md)
-        row["cases"].append({"case": case, "ms": ms, "timer": timer,
-                             "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-                             "bound_ms": b_ms, "bound_by": b_by,
-                             "library_ms": None, "max_abs_err": err,
-                             "bytes": nbytes, "ops": ops})
-        phase("kernels", f"{name} [{case}] ok: kernel {ms:.4f} ms "
-              f"({timer}; wrapper {wrapper_ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms by {b_by}: {nbytes} bytes, {ops:.0f} "
-              f"operations{note}; max_abs_err {err})")
+        rows.setdefault(name, {"cases": []})["cases"].append(kernel_row(
+            "kernels", name, case, fn, ref, nbytes, ops, err, note))
 
     # ---- kernel 1: rescore (exact integers) ---------------------------
     for lo, width in ((0, 128), (128, 512), (512, 2048)):
@@ -551,8 +580,9 @@ def _correction_hits(sym2, rec_rows, rscal, slot_qid, qscal, wtab,
     idx = torch.nonzero((r[:, 5] != 0) & (slot >= 0) & (slot < g)).flatten()
     pos = torch.arange(L, device=dev)[None, :]
     cells, classes, kept = [], [], []
-    for lo in range(0, idx.numel(), 1 << 15):
-        i = idx[lo:lo + (1 << 15)]
+    step = max(1, (1 << 22) // L)       # (records, L) cells per pass
+    for lo in range(0, idx.numel(), step):
+        i = idx[lo:lo + step]
         qstart, tstart, alen, tlen, smin = (r[i, k:k + 1] for k in range(5))
         q = sym2[slot_qid.to(torch.int64)[glob[i]]]
         t = sym2[rec_rows.to(torch.int64)[i]]
@@ -797,11 +827,14 @@ def check_edges(damage, device) -> None:
 
     from carpedeam_tpu_torch.ops import correction_cuda, rescore_cuda
     rng = np.random.default_rng(20261017)
+    # L=8192 and 16384: per-level planes of the rescore ladder's top
+    # levels, which the deep configuration's contigs reach
     for L, n, P, flat in ((100, 48, 6000, False), (128, 48, 6000, False),
+                          (8192, 24, 3000, False), (16384, 12, 1500, False),
                           (33000, 6, 64, True)):
         args = _rescore_edges(rng, L, n, P, flat, device)
         out = rescore_cuda.rescore_pairs(*args)
-        ref = rescore_cuda.rescore_pairs_reference(*args)
+        ref = rescore_plain(*args)
         sync()
         check(torch.equal(out, ref), f"rescore_pairs edge case L={L} "
               f"differs from its plain version")
@@ -818,7 +851,13 @@ def check_edges(damage, device) -> None:
              ("L=200 two tiles", 200, 32, 128, 3, wtab, False, False),
              ("L=4096 tile spans", 4096, 32, 32, 3, wtab, False, True),
              ("L=128 records out of slot order", 128, 128, 512, 2, wtab,
-              False, False))
+              False, False),
+             # the correction ladder's upper levels, with the (G, R) that
+             # correction_cuda picks for their planes
+             ("L=2048 tile spans", 2048, *correction_cuda._tiles_for(2048),
+              3, wtab, False, True),
+             ("L=8192 tile spans", 8192, *correction_cuda._tiles_for(8192),
+              3, wtab, False, True))
     for name, L, g, rt, nb, tab, full, spans in cases:
         args = list(_correction_edges(rng, L, g, rt, nb, tab, full, spans,
                                       device))
@@ -829,7 +868,7 @@ def check_edges(damage, device) -> None:
             args[2] = args[2].view(nb, rt, 8)[:, perm].reshape(-1, 8) \
                 .contiguous()
         out = correction_cuda.correction_kernel(*args)
-        ref = correction_cuda.correction_kernel_reference(*args)
+        ref = correction_plain(*args)
         sync()
         check(torch.equal(out, ref), f"correction edge case {name} differs "
               f"from its plain version")
@@ -1214,13 +1253,13 @@ KMER_KERNELS = ("kmer_windows", "kmer_select", "seg_suffix_scan")
 
 
 def run_assemble(label: str, reads, params, damage, out_dir: str,
-                 kmer_device: bool) -> dict:
-    """ancient_assemble on the card (CARPEDEAM_KMER_DEVICE=1 or 0) with
+                 kmer_device: bool, device: str = "cuda",
+                 hooks=contextlib.nullcontext) -> dict:
+    """ancient_assemble on `device` (CARPEDEAM_KMER_DEVICE=1 or 0) with
     the launch counts and coverage set to 0 just before and read just
-    after; prints the wall and stage seconds.  Returns wall, stages,
-    launches, coverage and the FASTA bytes."""
-    import torch
-
+    after, inside the context `hooks()`; prints the wall and stage
+    seconds.  Returns wall, stages, launches, coverage and the FASTA
+    bytes."""
     from carpedeam_tpu_torch import _build, utils
     from carpedeam_tpu_torch.pipeline import ancient_assemble
     path = os.path.join(out_dir, f"{label}_{int(kmer_device)}_"
@@ -1229,15 +1268,16 @@ def run_assemble(label: str, reads, params, damage, out_dir: str,
     os.environ["CARPEDEAM_KMER_DEVICE"] = "1" if kmer_device else "0"
     timer = utils.StageTimer()
     try:
-        _build.reset_launch_counts()
-        utils.coverage_reset()
-        t0 = time.perf_counter()
-        rep = ancient_assemble(reads, params, damage, out_fasta=path,
-                               device="cuda", timer=timer)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = _build.launch_counts()
-        coverage = utils.coverage_summary()
+        with hooks():
+            _build.reset_launch_counts()
+            utils.coverage_reset()
+            t0 = time.perf_counter()
+            rep = ancient_assemble(reads, params, damage, out_fasta=path,
+                                   device=device, timer=timer)
+            sync()
+            wall = time.perf_counter() - t0
+            launches = _build.launch_counts()
+            coverage = utils.coverage_summary()
     finally:
         if old is None:
             del os.environ["CARPEDEAM_KMER_DEVICE"]
@@ -1794,8 +1834,340 @@ def check_mesh(dbs: dict, params, damage, fa15: str, prefix: str,
           f"{host_s:.4f} s for np.lexsort")
 
 
-def main() -> int:
+# ---- the deep long-contig configuration -----------------------------------
+
+# BASELINE.json config 4 as tools/run_deep_config.py runs it: --unsafe
+# long-contig mode, 12 iterations, and a split limit low enough that the
+# host k-mer extraction runs in blocks
+DEEP_FLAGS = ("--unsafe", "1", "--min-merge-seq-id", "0.97",
+              "--num-iterations", "12", "--split-memory-limit", "128M")
+# two runs at 500,000 reads (the JAX repo's scale for this
+# configuration, DEEP_CONFIG_r05.json) take 1280 s on the H100's host;
+# at 120,000 they stay near 300 s (PERF.md section 4)
+DEEP_READS = 120_000
+DEEP_SPECIES = 10
+# plane cells (rows x width) a plain version holds in one pass
+PLAIN_CELLS = 1 << 26
+
+
+def deep_params(use_device: str):
+    """The deep configuration's Params, parsed from DEEP_FLAGS and
+    `--use-device` by the flag parser of the port's CLI."""
+    import argparse
+
+    from carpedeam_tpu_torch.params import add_flags, params_from_args
+    ap = argparse.ArgumentParser()
+    add_flags(ap)
+    return params_from_args(ap.parse_args(
+        [*DEEP_FLAGS, "--use-device", use_device]))
+
+
+def rescore_plain(code2, sym2, lens, pairs):
+    """rescore_pairs_reference over chunks of pairs (each pair's word
+    depends on that pair alone), PLAIN_CELLS window cells at a time."""
     import torch
+
+    from carpedeam_tpu_torch.ops.rescore_cuda import rescore_pairs_reference
+    step = max(1, PLAIN_CELLS // code2.shape[1])
+    return torch.cat([rescore_pairs_reference(code2, sym2, lens,
+                                              pairs[i:i + step])
+                      for i in range(0, pairs.shape[0], step)])
+
+
+def correction_plain(sym2, rec_rows, rscal, slot_qid, qscal, wtab, g: int,
+                     rt: int):
+    """correction_kernel_reference over chunks of blocks (a block reads
+    its own records and slots alone), PLAIN_CELLS record cells at a
+    time."""
+    import torch
+
+    from carpedeam_tpu_torch.ops.correction_cuda import \
+        correction_kernel_reference
+    nb = slot_qid.shape[0] // g
+    step = max(1, PLAIN_CELLS // (rt * sym2.shape[1]))
+    return torch.cat([correction_kernel_reference(
+        sym2, rec_rows[b * rt:(b + step) * rt],
+        rscal[b * rt:(b + step) * rt], slot_qid[b * g:(b + step) * g],
+        qscal[b * g:(b + step) * g], wtab, g, rt)
+        for b in range(0, nb, step)])
+
+
+def ladder_level(L: int, levels) -> int:
+    """The ladder level whose planes are `L` wide: the narrowest level
+    that holds L (a level's planes are at most as wide as the level and
+    wider than the level below it)."""
+    return next(lvl for lvl in levels if L <= lvl)
+
+
+class DeepTrace:
+    """What one ancient_assemble run did per iteration and per ladder
+    level, read by wrapping the pipeline's stage functions and the two
+    kernel wrappers while it runs (the package's code is unchanged):
+
+    - `longest`: (phase, longest sequence) after each iteration;
+    - `levels`: (kernel, phase, level) -> launches and records on the
+      card (rescore: pairs; correction: records with the use flag);
+    - `host`: (stage, phase) -> records of each device stage on the card
+      and on the host oracles, and of those on the host, the ones past
+      the ladder's top level (correction's others are non-ACGT queries
+      and stacks deeper than the record tile);
+    - `largest`: (kernel, level) -> the cloned arguments of the level's
+      call with the most rows, for levels above the first.
+
+    With `subtimes`, the stages' sub-timers run (CARPEDEAM_SUBTIMING)
+    and their lines go to the file `subtimes`."""
+
+    def __init__(self, k_reads: int, subtimes: str | None = None):
+        self.k_reads = k_reads
+        self.subtimes_path = subtimes
+        self.phase = "read"
+        self.longest: list = []
+        self.levels: dict = {}
+        self.host: dict = {}
+        self.largest: dict = {}
+        self.subtimes: dict = {}
+        self._heavy = 0
+
+    def _kmer(self, fn):
+        def wrapper(seqdb, k, *args, **kw):
+            self.phase = "read" if k == self.k_reads else "contig"
+            return fn(seqdb, k, *args, **kw)
+        return wrapper
+
+    def _longest(self, fn):
+        def wrapper(*args, **kw):
+            out = fn(*args, **kw)
+            self.longest.append((self.phase, int(out.lengths.max())
+                                 if len(out) else 0))
+            phase("deep", f"iteration {len(self.longest)} ({self.phase} "
+                  f"phase): {len(out)} sequences, longest "
+                  f"{self.longest[-1][1]}")
+            return out
+        return wrapper
+
+    def _stage(self, stage: str):
+        """Records of one device stage on the card and on the host, from
+        the coverage counts just before and just after each call."""
+        from carpedeam_tpu_torch import utils
+        from carpedeam_tpu_torch.ops.window_cuda import has_non_acgt_flags
+
+        def make(fn):
+            def wrapper(*args, **kw):
+                before = dict(utils.DEVICE_COVERAGE.get(
+                    stage, {"device": 0, "host": 0}))
+                self._heavy = 0
+                out = fn(*args, **kw)
+                after = utils.DEVICE_COVERAGE[stage]
+                d = self.host.setdefault((stage, self.phase), {
+                    "device": 0, "host": 0, "past_ladder": 0})
+                host = after["host"] - before["host"]
+                d["device"] += after["device"] - before["device"]
+                d["host"] += host
+                other = 0
+                if stage == "correction":
+                    other = self._heavy + int(has_non_acgt_flags(
+                        args[0]).sum())
+                d["past_ladder"] += host - other
+                return out
+            return wrapper
+        return make
+
+    def _heavy_count(self, fn):
+        def wrapper(*args, **kw):
+            heavy = fn(*args, **kw)
+            self._heavy += len(heavy)
+            return heavy
+        return wrapper
+
+    def _kernel(self, kernel: str, levels, key: int, records):
+        def make(fn):
+            def wrapper(*args, **kw):
+                lvl = ladder_level(args[0].shape[1], levels)
+                d = self.levels.setdefault((kernel, self.phase, lvl),
+                                           {"launches": 0, "records": 0})
+                d["launches"] += 1
+                d["records"] += records(args)
+                best = self.largest.get((kernel, lvl))
+                if lvl > levels[0] and (best is None or args[key].shape[0]
+                                        > best[key].shape[0]):
+                    self.largest[(kernel, lvl)] = cloned(args)
+                return fn(*args, **kw)
+            return wrapper
+        return make
+
+    @contextlib.contextmanager
+    def installed(self):
+        from carpedeam_tpu_torch import pipeline, utils
+        from carpedeam_tpu_torch.ops import correction_cuda, rescore_cuda
+        from carpedeam_tpu_torch.ops.correction_cuda import CORR_LEN_LEVELS
+        from carpedeam_tpu_torch.ops.rescore_cuda import LEN_LEVELS
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(patched(pipeline, "kmermatcher", self._kmer))
+            for name in ("read_assembly", "contig_merge"):
+                stack.enter_context(patched(pipeline, name, self._longest))
+            stack.enter_context(patched(pipeline, "rescorediagonal_cuda",
+                                        self._stage("rescorediagonal")))
+            stack.enter_context(patched(pipeline, "correction_cuda",
+                                        self._stage("correction")))
+            stack.enter_context(patched(correction_cuda,
+                                        "_run_correction_level",
+                                        self._heavy_count))
+            stack.enter_context(patched(
+                rescore_cuda, "rescore_pairs",
+                self._kernel("rescore_pairs", LEN_LEVELS, 3,
+                             lambda a: a[3].shape[0])))
+            stack.enter_context(patched(
+                correction_cuda, "correction_kernel",
+                self._kernel("correction", CORR_LEN_LEVELS, 1,
+                             lambda a: int((a[2][:, 5] != 0).sum()))))
+            if self.subtimes_path:
+                old = utils._SUBTIMING
+                utils._SUBTIMING = True
+                utils.SUBTIMES.clear()
+                stack.callback(setattr, utils, "_SUBTIMING", old)
+                fh = stack.enter_context(open(self.subtimes_path, "w"))
+                stack.enter_context(contextlib.redirect_stderr(fh))
+            yield self
+            self.subtimes = dict(utils.SUBTIMES)
+
+
+def subtimes_by_level(subtimes: dict) -> dict:
+    """The rescore and correction sub-timers (seconds summed over the
+    run), correction's per-width ones (corr.<step>_L<width>) summed by
+    the ladder level of the width (corr.<step>_lvl<level>)."""
+    import re
+
+    from carpedeam_tpu_torch.ops.correction_cuda import CORR_LEN_LEVELS
+    out: dict[str, float] = {}
+    for k, v in subtimes.items():
+        m = re.fullmatch(r"(corr\.\w+)_L(\d+)", k)
+        if m:
+            lvl = ladder_level(int(m.group(2)), CORR_LEN_LEVELS)
+            k = f"{m.group(1)}_lvl{lvl}"
+        if k.startswith(("rescore.", "corr.")):
+            out[k] = out.get(k, 0.0) + v
+    return {k: round(v, 3) for k, v in sorted(out.items())}
+
+
+def deep_rows(trace: DeepTrace) -> list:
+    """Each kernel at each ladder level above the first that the run
+    reached, on the level's largest call: equal to its plain version,
+    with its times and bound."""
+    import torch
+
+    from carpedeam_tpu_torch.ops import correction_cuda, rescore_cuda
+    rows = []
+    for (kernel, lvl), args in sorted(trace.largest.items()):
+        if kernel == "rescore_pairs":
+            code2, sym2, lens, pairs = args
+            out = rescore_cuda.rescore_pairs(*args)
+            ref = rescore_plain(*args)
+            cols, nbytes = _rescore_need(code2, lens, pairs, out)
+            ops = 2.0 * cols
+            case = f"level {lvl}: L={code2.shape[1]} P={pairs.shape[0]}"
+            fn = (lambda a=args: rescore_cuda.rescore_pairs(*a))
+            plain = (lambda a=args: rescore_plain(*a))
+        else:
+            out = correction_cuda.correction_kernel(*args)
+            ref = correction_plain(*args)
+            nbytes = _correction_bytes(*args, out)
+            ops = _correction_ops(*args)
+            sym2, _, _, slot_qid, _, _, g, rt = args
+            case = (f"level {lvl}: L={sym2.shape[1]} "
+                    f"blocks={slot_qid.numel() // g} G={g} R={rt}")
+            fn = (lambda a=args: correction_cuda.correction_kernel(*a))
+            plain = (lambda a=args: correction_plain(*a))
+        sync()
+        check(torch.equal(out, ref), f"{kernel} differs from its plain "
+              f"version at the deep run's level {lvl}")
+        rows.append({"name": kernel, "level": lvl, **kernel_row(
+            "deep", kernel, case, fn, plain, nbytes, ops, 0)})
+    return rows
+
+
+def check_deep(n_reads: int, out_dir: str, device: str = "cuda") -> dict:
+    """Phase `deep`: ancient_assemble in the deep configuration on a
+    10-species mock community of `n_reads` reads, on the kernel route
+    (`--use-device auto` on `device`) and the host route (`--use-device
+    0`): equal FASTA; window and consensus launch on neither (--unsafe
+    skips the batched extension scoring), rescore and correction on the
+    kernel route in both phases; per ladder level the launches, the
+    records on the card and those past the top level; each level above
+    the first against its plain version, timed."""
+    from carpedeam_tpu_torch import workload
+    from carpedeam_tpu_torch.damage import DamageModel
+    reads, rates = workload.generate(3, n_reads, coverage=20.0,
+                                     species=DEEP_SPECIES)
+    damage = DamageModel.from_rates(*rates)
+    phase("deep", f"workload: {len(reads)} reads of {DEEP_SPECIES} "
+          f"species, {reads.total_residues} residues; flags "
+          + " ".join(DEEP_FLAGS))
+    runs, traces = {}, {}
+    for route, use in (("kernel", "auto"), ("host", "0")):
+        params = deep_params(use)
+        trace = DeepTrace(params.kmer_size_reads, os.path.join(
+            out_dir, f"deep_{route}_subtimes.log"))
+        run = run_assemble("deep", reads, params, damage, out_dir,
+                           kmer_device=False, device=device,
+                           hooks=trace.installed)
+        sub = subtimes_by_level(trace.subtimes)
+        phase("deep", f"{route} route: sub-timers " + json.dumps(sub))
+        phase("deep", f"{route} route: longest sequence after each "
+              "iteration " + json.dumps(trace.longest))
+        runs[route], traces[route] = run, trace
+    kernel, host = runs["kernel"], runs["host"]
+    check(kernel["fasta"] == host["fasta"], "the deep configuration's FASTA "
+          "differs between the kernel route and the host route")
+    check(traces["kernel"].longest == traces["host"].longest,
+          "the two routes grew different sequences")
+    check(not any(host["launches"].values()),
+          f"the host route launched kernels: {host['launches']}")
+    for k in ("window_identity", "consensus_likelihood"):
+        check(kernel["launches"][k] == 0, f"{k} launched under --unsafe")
+    tr = traces["kernel"]
+    levels = {}
+    for (k, ph, lvl), d in sorted(tr.levels.items()):
+        levels.setdefault(k, {}).setdefault(ph, {})[str(lvl)] = d
+    for k in ("rescore_pairs", "correction"):
+        for ph in ("read", "contig"):
+            check(sum(d["launches"] for d in
+                      levels.get(k, {}).get(ph, {}).values()) > 0,
+                  f"{k} did not launch in the {ph} phase")
+        # the wrappers launch nothing on the CPU (their plain versions)
+        check(device == "cpu" or sum(
+            d["launches"] for per in levels[k].values()
+            for d in per.values()) == kernel["launches"][k],
+            f"{k}: per-level launches do not add up to its count")
+    reached = {k: sorted({int(lvl) for per in v.values() for lvl in per})
+               for k, v in levels.items()}
+    host_rest = {f"{stage} {ph}": d
+                 for (stage, ph), d in sorted(tr.host.items())}
+    phase("deep", "ladder levels reached " + json.dumps(reached))
+    phase("deep", "per level (launches, records on the card) "
+          + json.dumps(levels))
+    phase("deep", "records by stage and phase (card, host, past the top "
+          "level) " + json.dumps(host_rest))
+    phase("deep", f"FASTA byte-identical on both routes "
+          f"({len(kernel['fasta'])} bytes, {kernel['fasta'].count(b'>')} "
+          f"contigs); walls {kernel['wall']:.2f} s (kernel route), "
+          f"{host['wall']:.2f} s (host route)")
+    rows = deep_rows(tr) if device != "cpu" else []
+    return {"reads": n_reads, "species": DEEP_SPECIES,
+            "flags": " ".join(DEEP_FLAGS),
+            "wall_s": {"kernel": kernel["wall"], "host": host["wall"]},
+            "stages_s": {"kernel": kernel["stages"], "host": host["stages"]},
+            "longest": tr.longest, "levels_reached": reached,
+            "levels": levels, "host_records": host_rest,
+            "launches": kernel["launches"],
+            "coverage": kernel["coverage"], "kernel_rows": rows}
+
+
+def main(argv: list[str]) -> int:
+    import torch
+    deep_only = argv[:1] == ["--deep"]
+    if argv and not (deep_only and len(argv) == 2 and argv[1].isdigit()):
+        print("usage: chip_smoke.py [--deep N]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -1824,6 +2196,19 @@ def main() -> int:
     nb = native.build()
     phase("build", f"host C++ library {nb.seconds:.2f} s "
           f"{'(cached)' if nb.cached else ''} -> {nb.path}")
+    out_dir = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    if deep_only:
+        from carpedeam_tpu_torch import utils
+        utils.set_verbosity(2)
+        deep = check_deep(int(argv[1]), out_dir)
+        phase("done", f"phase deep passed in {time.perf_counter() - T0:.1f} s")
+        print(smi_line, flush=True)
+        print(json.dumps({"deep": deep}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": device_name,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # ---- kernels -------------------------------------------------------
     import numpy as np
@@ -1845,9 +2230,6 @@ def main() -> int:
     # ---- assemble ------------------------------------------------------
     from carpedeam_tpu_torch import pipeline
     from carpedeam_tpu_torch.pipeline import nuclassemble
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "build", "chip_smoke")
-    os.makedirs(out_dir, exist_ok=True)
     km_calls: list = []
     with capture(pipeline, "kmermatcher", km_calls):
         run = run_assemble("assemble", reads, params, damage, out_dir,
@@ -1950,6 +2332,9 @@ def main() -> int:
     fa15, prefix, base15 = check_world(reads, w15, rates, out_dir, "cuda")
     check_mesh(dbs, params, damage, fa15, prefix, base15, out_dir, "cuda")
 
+    # ---- deep ----------------------------------------------------------
+    deep = check_deep(DEEP_READS, out_dir)
+
     kernels = []
     for kname, k in _build.KERNELS.items():
         cases = rows[kname]["cases"]
@@ -1967,8 +2352,8 @@ def main() -> int:
             "cases": cases})
     phase("done", f"all phases passed in {time.perf_counter() - T0:.1f} s")
     print(smi_line, flush=True)
-    print(json.dumps({"kernels": kernels, "stages": stages, "mlp": mlp}),
-          flush=True)
+    print(json.dumps({"kernels": kernels, "stages": stages, "mlp": mlp,
+                      "deep": deep}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1976,4 +2361,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

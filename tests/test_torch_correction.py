@@ -152,6 +152,28 @@ def test_chunked_long_contig_levels_match_pallas(small_blocks, monkeypatch):
     assert same_seqs(mine, ora)
 
 
+@pytest.mark.parametrize("L", [2048, 8192])
+def test_edge_blocks_at_the_top_levels_match_pallas_kernel(L):
+    """chip_smoke's correction edge blocks (slots with 0, 1, 2 and more
+    kept records, records crossing 128-position tiles, both target ends)
+    at the ladder's upper levels, with the (G, R) that correction_cuda
+    picks there: the plain version equals the Pallas kernel."""
+    import chip_smoke
+    _, tdm = damage_pair(*profile_rates())
+    g, rt = C._tiles_for(L)
+    args = chip_smoke._correction_edges(np.random.default_rng(L), L, g, rt,
+                                        2, C.correction_wtab(tdm), False,
+                                        True, "cpu")
+    sym2, rows, rscal, slot_qid, qscal, wtab, g, rt = args
+    mine = C.correction_kernel(*args)
+    ref = CP._correction_pallas_device(
+        *(jnp.asarray(t.numpy()) for t in (sym2, rows, rscal, slot_qid,
+                                           qscal, wtab)),
+        nb=2, max_len=L, interpret=True, g=g, rec_tile=rt)
+    assert (rscal[:, 5] != 0).sum() > 10
+    assert np.array_equal(mine.numpy(), np.asarray(ref).view(np.uint8))
+
+
 def test_kernel_rejects_what_it_does_not_take():
     sym = torch.zeros((8, 128), dtype=torch.uint8)
     i32 = lambda *s: torch.zeros(s, dtype=torch.int32)  # noqa: E731

@@ -82,6 +82,30 @@ def test_packed_outputs_match_rescore_pairs_pallas(width):
     assert np.array_equal(mine.numpy(), ref)
 
 
+@pytest.mark.parametrize("L", [8192, 16384])
+def test_edge_pairs_at_the_top_levels_match_rescore_pairs_pallas(L):
+    """chip_smoke's rescore edge pairs (rows as long as the plane and
+    beyond it, reverse query rows, invalid and one-column candidates) at
+    the ladder's top levels: the plain version equals the Pallas kernel.
+    The generator's codes >= 4 become X (4), the only code past T that
+    CHAR_TO_CODE gives a plane."""
+    import chip_smoke
+    code, sym, lens, pairs = chip_smoke._rescore_edges(
+        np.random.default_rng(L), L, 8, 300, False, "cpu")
+    code = torch.where(code >= 4, 4, code).to(torch.uint8).contiguous()
+    P = pairs.shape[0]
+    B = _pair_block(L)
+    padded = np.zeros((-(-P // B) * B, 3), np.int32)
+    padded[:P] = pairs.numpy()
+    ref = np.asarray(rescore_pairs_pallas(
+        jnp.asarray(code.numpy()), jnp.asarray(sym.numpy()),
+        jnp.asarray(lens.numpy()), jnp.asarray(padded), max_len=L,
+        interpret=True))[:P]
+    mine = R.rescore_pairs(code, sym, lens, pairs)
+    assert (ref[:, 0] & 0xFFFF).any() and (lens.numpy() > L).any()
+    assert np.array_equal(mine.numpy(), ref)
+
+
 def test_rescore_pairs_rejects_what_the_kernel_does_not_take():
     code = torch.zeros((4, 128), dtype=torch.uint8)
     lens = torch.zeros(2, dtype=torch.int32)
