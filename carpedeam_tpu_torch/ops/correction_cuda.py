@@ -24,7 +24,8 @@ from .._build import KERNELS
 from ..constants import SMOOTHING_VALUE
 from ..damage import DamageModel, seq_error_profile
 from ..io.seqdb import SeqDB
-from .planes import HostCopy, assemble_planes, device_planes, to_device
+from .planes import (HostCopy, assemble_planes, device_planes, lookup,
+                     row_chunks, to_device)
 
 G = 32           # default query slots per block (see _tiles_for)
 REC_TILE = 256   # default record slots per block
@@ -316,25 +317,27 @@ def correction_kernel_reference(sym2, rec_rows, rscal, slot_qid, qscal,
 
 def derive_corrected_planes(sym2, lengths, packed, src_slot) -> dict:
     """Rebuild the corrected shared planes on the device from the kernel's
-    packed 2-bit output: decode the four bit-pair slices into per-slot
-    rows, then take each sequence's corrected row (its original row where
-    src_slot < 0: the query had no device slot, so correction left it
-    unchanged).  Lengths are unchanged by correction, so the rc and code
-    planes re-derive as usual."""
+    packed 2-bit output: each sequence's corrected row is decoded slot
+    src_slot (bit pair src % 4 of packed row src // 4, the interleave of
+    _slot_row_index), or its original row where src_slot < 0 (the query
+    had no device slot, so correction left it unchanged).  Lengths are
+    unchanged by correction, so the rc and code planes re-derive as
+    usual.  In row chunks (planes.row_chunks)."""
     L = packed.shape[1]
     n = lengths.shape[0]
-    sym_fwd = sym2[:n]
-    p = packed.to(torch.int64)
-    codes = torch.stack([(p >> (2 * j)) & 3 for j in range(4)],
-                        dim=1).reshape(-1, L)
-    acgt = torch.tensor(list(b"ACGT"), dtype=torch.uint8,
-                        device=sym2.device)
-    sym = acgt[codes]
-    src = src_slot.to(torch.int64)
-    picked = sym[torch.clamp(src, 0, sym.shape[0] - 1)]
-    pos = torch.arange(L, device=sym2.device)[None, :]
-    in_len = pos < lengths.to(torch.int64)[:, None]
-    new_fwd = torch.where((src >= 0)[:, None] & in_len, picked, sym_fwd)
+    dev = sym2.device
+    acgt = torch.tensor(list(b"ACGT"), dtype=torch.uint8, device=dev)
+    pos = torch.arange(L, device=dev, dtype=torch.int32)[None, :]
+    last = packed.shape[0] * 4 - 1
+    new_fwd = torch.empty((n, L), dtype=torch.uint8, device=dev)
+    for a, b in row_chunks(n, L):
+        src = src_slot[a:b].to(torch.int32)
+        s = src.clamp(0, last)
+        shift = (2 * (s % 4)).to(torch.uint8)[:, None]
+        picked = lookup(acgt, (packed.index_select(0, s // 4) >> shift) & 3)
+        keep = (src >= 0)[:, None] & (pos < lengths[a:b].to(torch.int32)
+                                      [:, None])
+        new_fwd[a:b] = torch.where(keep, picked, sym2[a:b])
     return assemble_planes(new_fwd, lengths)
 
 

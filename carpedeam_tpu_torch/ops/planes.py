@@ -71,35 +71,73 @@ def pack_sequences(seqdb, max_len=None, ids=None, fwd_only=False):
     return planes, lengths.astype(np.int32)
 
 
+# plane cells (rows x width) one derivation pass covers: a pass's
+# temporaries stay this many cells (its int64 gather index, 512 MiB, the
+# largest) however many rows the plane has; an int64 copy of a whole
+# 10M-row, 512-wide plane would take 41 GB
+DERIVE_CELLS = 1 << 26
+
+
 def _lut(table: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(table).to(device)
 
 
+def row_chunks(n: int, width: int):
+    """(start, stop) row ranges of an (n, width) plane, at most
+    DERIVE_CELLS cells and at least one row each."""
+    step = max(1, DERIVE_CELLS // max(width, 1))
+    return [(i, min(i + step, n)) for i in range(0, n, step)]
+
+
+def lookup(lut: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """lut[x] for a uint8 tensor x, through an int32 index."""
+    return lut.index_select(0, x.reshape(-1).to(torch.int32)) \
+        .reshape(x.shape)
+
+
 def derive_code(sym2: torch.Tensor) -> torch.Tensor:
     """Uppercased symbols -> 5-letter codes (X=4 for padding and
-    non-ACGT), as the JAX package's _derive_code where-chain."""
-    return _lut(_CODE_LUT, sym2.device)[sym2.long()]
+    non-ACGT), as the JAX package's _derive_code where-chain; in row
+    chunks."""
+    lut = _lut(_CODE_LUT, sym2.device)
+    out = torch.empty_like(sym2)
+    for a, b in row_chunks(sym2.shape[0], sym2.shape[1]):
+        out[a:b] = lookup(lut, sym2[a:b])
+    return out
 
 
-def derive_rc_plane(sym: torch.Tensor, lengths: torch.Tensor
-                    ) -> torch.Tensor:
-    """Reverse-complement symbol rows from the forward plane: complement,
-    flip, rotate the tail padding out (row i left by L - len_i), mask."""
+def derive_rc_plane(sym: torch.Tensor, lengths: torch.Tensor,
+                    out: torch.Tensor) -> torch.Tensor:
+    """Reverse-complement symbol rows from the forward plane, written into
+    `out`: complement, flip, rotate row i left by L - len_i, mask past
+    len_i, as the JAX package's _derive_rc_plane; its barrel shifter
+    takes the rotation's low bit_length(L - 1) bits, which a row
+    truncated to the plane (len_i > L) at a width that is no power of two
+    shows.  In row chunks."""
     n, max_len = sym.shape
-    comp = _lut(_COMP_LUT, sym.device)[sym.long()]
-    flipped = torch.flip(comp, dims=[1])
-    pos = torch.arange(max_len, device=sym.device, dtype=torch.int64)
-    lens = lengths.to(torch.int64)
-    idx = (pos[None, :] + (max_len - lens)[:, None]) % max_len
-    rolled = torch.gather(flipped, 1, idx)
-    return torch.where(pos[None, :] < lens[:, None], rolled,
-                       torch.zeros((), dtype=torch.uint8, device=sym.device))
+    lut = _lut(_COMP_LUT, sym.device)
+    pos = torch.arange(max_len, device=sym.device, dtype=torch.int32)
+    zero = torch.zeros((), dtype=torch.uint8, device=sym.device)
+    mask = (1 << max(1, (max_len - 1).bit_length())) - 1
+    for a, b in row_chunks(n, max_len):
+        lens = lengths[a:b].to(torch.int32)[:, None]
+        # flipped column (x + shift) mod L is forward column L-1 minus it;
+        # int32 arithmetic, widened once for gather's int64 index
+        shift = (max_len - lens) & mask
+        src = (max_len - 1 - (pos[None, :] + shift) % max_len).long()
+        rolled = lookup(lut, torch.gather(sym[a:b], 1, src))
+        out[a:b] = torch.where(pos[None, :] < lens, rolled, zero)
+    return out
 
 
 def assemble_planes(sym_fwd: torch.Tensor, lengths: torch.Tensor) -> dict:
     """(N, L) forward symbols + lengths -> {"code", "sym": (2N, L) uint8,
-    "len": (N,) int32} on the same device."""
-    sym2 = torch.cat([sym_fwd, derive_rc_plane(sym_fwd, lengths)])
+    "len": (N,) int32} on the same device, derived in row chunks."""
+    n, width = sym_fwd.shape
+    sym2 = torch.empty((2 * n, width), dtype=torch.uint8,
+                       device=sym_fwd.device)
+    sym2[:n] = sym_fwd
+    derive_rc_plane(sym_fwd, lengths, sym2[n:])
     return {"code": derive_code(sym2), "sym": sym2,
             "len": lengths.to(torch.int32)}
 

@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --deep N     # phases device, build and deep alone,
                                        # on N reads
+    python3 chip_smoke.py --scale N    # phases device, build and scale-run
+                                       # alone, on N reads
 
 Phases, each printing one line with the elapsed seconds:
 
@@ -79,6 +81,20 @@ Phases, each printing one line with the elapsed seconds:
             workload (FASTA equal to the default route's); the device k-mer
             sort (sort_kmer_entries_device) against np.lexsort on the
             read-phase entry table (equal permutation, both times)
+  short     BASELINE.json config 2, heavy-damage short reads (lengths
+            25-120 with mean 35, terminal C->T and G->A 0.30 falling by 0.8
+            a position) with --num-iter-reads-only 5 --num-iterations 14, on
+            120,000 reads (seed 5): the kernel route and the host route
+            (--use-device 0) write the same FASTA and grow the same
+            sequences; all four kernels launch on the kernel route and
+            every device stage runs records on the card
+  scale     the plane derivation at the 5M run's contig-phase shared-plane
+            shape (and the corrected-plane derivation at its row count):
+            peak device memory within its output and a stated scratch,
+            1,000 rows equal to the CPU's; then each of the four kernels at
+            its largest call shape of the 5M run (`--scale 5000000`) on
+            seeded synthetic rows, bit for bit against its plain version
+            (chunked), with times and bounds
   deep      the deep long-contig configuration (BASELINE.json config 4:
             --unsafe 1 --min-merge-seq-id 0.97 --num-iterations 12
             --split-memory-limit 128M) on a 10-species mock community
@@ -89,10 +105,19 @@ Phases, each printing one line with the elapsed seconds:
             the records on the card and those past the top level, the
             longest sequence after each iteration, the sub-timers; each
             level above the first against its plain version, timed
+  scale-run (`--scale N` alone) the default pipeline on N reads of
+            BASELINE.json config 3, a 10-species mock community (seed 4,
+            coverage 20), on the kernel route, the host route and (up to
+            1M reads) the device kmermatcher, each in a child process:
+            equal FASTA, equal to the JAX package's where its sha256 is
+            recorded (JAX_FASTA_SHA256); all four kernels launched, every
+            device stage on the card; per route the wall, stage seconds,
+            sub-timers, launches per ladder level, the largest call of
+            each kernel, peak host RSS and peak device memory
 
 The second-to-last line is a JSON object with each kernel's numbers
 (`launches` on the assemble run, `stage_launches` on the stage chain) and
-the `stages`, `mlp` and `deep` phases' readings; the
+the `stages`, `mlp`, `short`, `scale` and `deep` phases' readings; the
 last line is {"ok": true, "device": {...}}.  Any failed phase exits
 non-zero without that line.
 """
@@ -270,23 +295,39 @@ def plane_cells(n_rows: int, L: int, windows) -> int:
     """Distinct (row, column) cells of an (n_rows, L) plane covered by
     `windows`, each a (rows, start, width) triple of tensors: columns
     [start, start + width) of each row, taken mod L, width clipped to
-    [0, L].  A byte that several windows read counts once."""
+    [0, L].  A byte that several windows read counts once.  Counted over
+    row ranges of at most PLAIN_CELLS cells."""
     import torch
     dev = windows[0][0].device
-    diff = torch.zeros((n_rows, L + 1), dtype=torch.int32, device=dev)
+    # each window set sorted by row, so a row range is a slice of it
+    sets = []
     for rows, start, width in windows:
         rows = rows.to(torch.int64)
-        start = start.to(torch.int64) % L
-        end = start + width.to(torch.int64).clamp(0, L)
-        one = torch.ones(rows.shape, dtype=torch.int32, device=dev)
-        # [start, min(end, L)) and, where the window wraps, [0, end - L);
-        # an empty piece adds and removes one at the same column
-        for lo, hi in ((start, end.clamp(max=L)),
-                       (torch.zeros_like(start), (end - L).clamp(min=0))):
-            diff.index_put_((rows, lo), one, accumulate=True)
-            diff.index_put_((rows, hi), -one, accumulate=True)
-    cover = diff.cumsum(dim=1, dtype=torch.int32)[:, :L]
-    return int((cover > 0).sum().item())
+        order = torch.argsort(rows)
+        sets.append((rows[order], start.to(torch.int64)[order] % L,
+                     width.to(torch.int64)[order].clamp(0, L)))
+    total = 0
+    step = max(1, PLAIN_CELLS // (L + 1))
+    for a in range(0, n_rows, step):
+        b = min(a + step, n_rows)
+        diff = torch.zeros((b - a, L + 1), dtype=torch.int32, device=dev)
+        for rows, start, width in sets:
+            lo_hi = torch.searchsorted(
+                rows, torch.tensor([a, b], dtype=torch.int64, device=dev))
+            i, j = int(lo_hi[0]), int(lo_hi[1])
+            r, start = rows[i:j] - a, start[i:j]
+            end = start + width[i:j]
+            one = torch.ones(r.shape, dtype=torch.int32, device=dev)
+            # [start, min(end, L)) and, where the window wraps, [0, end - L);
+            # an empty piece adds and removes one at the same column
+            for lo, hi in ((start, end.clamp(max=L)),
+                           (torch.zeros_like(start),
+                            (end - L).clamp(min=0))):
+                diff.index_put_((r, lo), one, accumulate=True)
+                diff.index_put_((r, hi), -one, accumulate=True)
+        cover = diff.cumsum(dim=1, dtype=torch.int32)[:, :L]
+        total += int((cover > 0).sum().item())
+    return total
 
 
 def bound(nbytes: int, ops: float) -> tuple[float, str]:
@@ -392,14 +433,14 @@ def kernel_inputs(damage, params, device, reads):
 
 
 def kernel_row(label: str, name: str, case: str, fn, ref, nbytes: int,
-               ops: float, err, note: str = "") -> dict:
+               ops: float, err, note: str = "", plain_reps: int = 3) -> dict:
     """One kernel case's numbers, printed under phase `label`: the kernel's
     device time, the wrapper's and the plain version's times by CUDA
     events, and the bound of these inputs' bytes and operations."""
     ms, timer = kernel_ms(fn, DEVICE_KERNELS.get(name, (f"{name}_kernel",)),
                           20)
     wrapper_ms = cuda_ms(fn, 20)
-    plain_ms = cuda_ms(ref, 3)
+    plain_ms = cuda_ms(ref, plain_reps)
     b_ms, b_by = bound(nbytes, ops)
     phase(label, f"{name} [{case}] ok: kernel {ms:.4f} ms "
           f"({timer}; wrapper {wrapper_ms:.4f} ms, plain "
@@ -490,9 +531,19 @@ def _check_window(args, record):
     ref = window_cuda.window_identity_reference(*args)
     sync()
     check(torch.equal(out, ref), "window_identity differs")
-    # bytes: the window of each record's query and target rows, the
-    # record's row indices and the three scalars the kernel reads, and
-    # the output; operations: two compares and two adds per column
+    nbytes, ops = _window_need(args, out)
+    record("window_identity", f"L={args[0].shape[1]} n={args[1].numel()}",
+           lambda: window_cuda.window_identity(*args),
+           lambda: window_cuda.window_identity_reference(*args),
+           nbytes, ops, 0)
+
+
+def _window_need(args, out) -> tuple[int, float]:
+    """(bytes, operations) of the window-identity kernel on these inputs:
+    the window of each record's query and target rows, the record's row
+    indices and the three scalars the kernel reads, and the output; two
+    compares and two adds per column."""
+    import torch
     sym2, qrow, trow, scal = args
     L = sym2.shape[1]
     s = scal.to(torch.int64)
@@ -501,10 +552,7 @@ def _check_window(args, record):
     cells = plane_cells(sym2.shape[0], L, [
         (qrow, lo, width), (trow, lo + (s[:, 1] - s[:, 0]), width)])
     nbytes = cells + qrow.numel() * (4 + 4 + 12) + out.numel() * 4
-    record("window_identity", f"L={L} n={qrow.numel()}",
-           lambda: window_cuda.window_identity(*args),
-           lambda: window_cuda.window_identity_reference(*args),
-           nbytes, 4.0 * width.sum().item(), 0)
+    return nbytes, 4.0 * width.sum().item()
 
 
 def _check_consensus(args, record):
@@ -518,10 +566,21 @@ def _check_consensus(args, record):
     # columns, the sum included, must be equal bit for bit
     check(torch.equal(out, ref), "consensus_likelihood differs from its "
           "plain version")
-    # bytes: the columns of each record that can be used (target column
-    # in [0, tlen) and [ir0, ir1), query column in [0, qlen)) in its query
-    # and target rows, the row indices, the five scalars the kernel
-    # reads, the table and the output; operations: about ten per column
+    nbytes, ops = _consensus_need(args, out)
+    record("consensus_likelihood", f"L={args[0].shape[1]} "
+           f"n={args[1].numel()}",
+           lambda: ext_cuda.consensus_likelihood(*args),
+           lambda: ext_cuda.consensus_likelihood_reference(*args),
+           nbytes, ops, 0)
+
+
+def _consensus_need(args, out) -> tuple[int, float]:
+    """(bytes, operations) of the consensus kernel on these inputs: the
+    columns of each record that can be used (target column in [0, tlen)
+    and [ir0, ir1), query column in [0, qlen)) in its query and target
+    rows, the row indices, the five scalars the kernel reads, the table
+    and the output; about ten operations per column."""
+    import torch
     sym2, qrow, trow, scal, wtab = args
     L = sym2.shape[1]
     s = scal.to(torch.int64)
@@ -533,10 +592,7 @@ def _check_consensus(args, record):
         (trow, lo, width), (qrow, lo + qpos0, width)])
     nbytes = cells + qrow.numel() * (4 + 4 + 20) \
         + wtab.numel() * 4 + out.numel() * 4
-    record("consensus_likelihood", f"L={L} n={qrow.numel()}",
-           lambda: ext_cuda.consensus_likelihood(*args),
-           lambda: ext_cuda.consensus_likelihood_reference(*args),
-           nbytes, 10.0 * width.sum().item(), 0)
+    return nbytes, 10.0 * width.sum().item()
 
 
 def _largest(calls, lo: int, hi: int, key: int):
@@ -580,7 +636,7 @@ def _correction_hits(sym2, rec_rows, rscal, slot_qid, qscal, wtab,
     idx = torch.nonzero((r[:, 5] != 0) & (slot >= 0) & (slot < g)).flatten()
     pos = torch.arange(L, device=dev)[None, :]
     cells, classes, kept = [], [], []
-    step = max(1, (1 << 22) // L)       # (records, L) cells per pass
+    step = max(1, (1 << 24) // L)       # (records, L) cells per pass
     for lo in range(0, idx.numel(), step):
         i = idx[lo:lo + step]
         qstart, tstart, alen, tlen, smin = (r[i, k:k + 1] for k in range(5))
@@ -1842,9 +1898,10 @@ def check_mesh(dbs: dict, params, damage, fa15: str, prefix: str,
 DEEP_FLAGS = ("--unsafe", "1", "--min-merge-seq-id", "0.97",
               "--num-iterations", "12", "--split-memory-limit", "128M")
 # two runs at 500,000 reads (the JAX repo's scale for this
-# configuration, DEEP_CONFIG_r05.json) take 1280 s on the H100's host;
-# at 120,000 they stay near 300 s (PERF.md section 4)
-DEEP_READS = 120_000
+# configuration, DEEP_CONFIG_r05.json) take 1280 s on the H100's host,
+# at 120,000 about 300 s; 35,000 is the smallest draw (in steps of 5,000)
+# whose contigs still reach every ladder level (PERF.md section 4)
+DEEP_READS = 35_000
 DEEP_SPECIES = 10
 # plane cells (rows x width) a plain version holds in one pass
 PLAIN_CELLS = 1 << 26
@@ -1853,13 +1910,7 @@ PLAIN_CELLS = 1 << 26
 def deep_params(use_device: str):
     """The deep configuration's Params, parsed from DEEP_FLAGS and
     `--use-device` by the flag parser of the port's CLI."""
-    import argparse
-
-    from carpedeam_tpu_torch.params import add_flags, params_from_args
-    ap = argparse.ArgumentParser()
-    add_flags(ap)
-    return params_from_args(ap.parse_args(
-        [*DEEP_FLAGS, "--use-device", use_device]))
+    return default_params(use_device, DEEP_FLAGS)
 
 
 def rescore_plain(code2, sym2, lens, pairs):
@@ -1912,14 +1963,23 @@ class DeepTrace:
       the ladder's top level (correction's others are non-ACGT queries
       and stacks deeper than the record tile);
     - `largest`: (kernel, level) -> the cloned arguments of the level's
-      call with the most rows, for levels above the first.
+      call with the most rows, for levels above the first (with
+      `keep_largest`);
+    - `shapes`: (kernel, plane width) -> the largest call's rows (rescore
+      pairs, correction blocks, window and consensus records), plane
+      shape and phase; window and consensus `levels` are plane widths.
 
     With `subtimes`, the stages' sub-timers run (CARPEDEAM_SUBTIMING)
-    and their lines go to the file `subtimes`."""
+    and their lines go to the file `subtimes`.  `label` names the phase
+    of the lines it prints."""
 
-    def __init__(self, k_reads: int, subtimes: str | None = None):
+    def __init__(self, k_reads: int, subtimes: str | None = None,
+                 label: str = "deep", keep_largest: bool = True):
         self.k_reads = k_reads
         self.subtimes_path = subtimes
+        self.label = label
+        self.keep_largest = keep_largest
+        self.shapes: dict = {}
         self.phase = "read"
         self.longest: list = []
         self.levels: dict = {}
@@ -1939,7 +1999,7 @@ class DeepTrace:
             out = fn(*args, **kw)
             self.longest.append((self.phase, int(out.lengths.max())
                                  if len(out) else 0))
-            phase("deep", f"iteration {len(self.longest)} ({self.phase} "
+            phase(self.label, f"iteration {len(self.longest)} ({self.phase} "
                   f"phase): {len(out)} sequences, longest "
                   f"{self.longest[-1][1]}")
             return out
@@ -1979,30 +2039,54 @@ class DeepTrace:
             return heavy
         return wrapper
 
-    def _kernel(self, kernel: str, levels, key: int, records):
+    def _kernel(self, kernel: str, levels, key: int, records, rows=None):
+        """Counts of the wrapper `kernel` by ladder level (`levels`; None:
+        by plane width); `rows(args)` is a call's size in `shapes`
+        (default: argument `key`'s rows)."""
         def make(fn):
             def wrapper(*args, **kw):
-                lvl = ladder_level(args[0].shape[1], levels)
+                L = args[0].shape[1]
+                lvl = ladder_level(L, levels) if levels else L
                 d = self.levels.setdefault((kernel, self.phase, lvl),
                                            {"launches": 0, "records": 0})
                 d["launches"] += 1
                 d["records"] += records(args)
+                n = rows(args) if rows else args[key].shape[0]
+                sh = self.shapes.get((kernel, L))
+                if sh is None or n > sh["rows"]:
+                    self.shapes[(kernel, L)] = {
+                        "rows": n, "plane": list(args[0].shape),
+                        "phase": self.phase}
                 best = self.largest.get((kernel, lvl))
-                if lvl > levels[0] and (best is None or args[key].shape[0]
-                                        > best[key].shape[0]):
+                if self.keep_largest and levels and lvl > levels[0] and (
+                        best is None
+                        or args[key].shape[0] > best[key].shape[0]):
                     self.largest[(kernel, lvl)] = cloned(args)
                 return fn(*args, **kw)
             return wrapper
         return make
 
+    def by_kernel(self) -> dict:
+        """`levels` as {kernel: {phase: {level: counts}}}."""
+        out: dict = {}
+        for (k, ph, lvl), d in sorted(self.levels.items()):
+            out.setdefault(k, {}).setdefault(ph, {})[str(lvl)] = d
+        return out
+
+    def host_records(self) -> dict:
+        """`host` as {"<stage> <phase>": counts}."""
+        return {f"{st} {ph}": d for (st, ph), d in sorted(self.host.items())}
+
     @contextlib.contextmanager
     def installed(self):
         from carpedeam_tpu_torch import pipeline, utils
-        from carpedeam_tpu_torch.ops import correction_cuda, rescore_cuda
+        from carpedeam_tpu_torch.ops import (correction_cuda, ext_cuda,
+                                             rescore_cuda, window_cuda)
         from carpedeam_tpu_torch.ops.correction_cuda import CORR_LEN_LEVELS
         from carpedeam_tpu_torch.ops.rescore_cuda import LEN_LEVELS
         with contextlib.ExitStack() as stack:
-            stack.enter_context(patched(pipeline, "kmermatcher", self._kmer))
+            for name in ("kmermatcher", "kmermatcher_device"):
+                stack.enter_context(patched(pipeline, name, self._kmer))
             for name in ("read_assembly", "contig_merge"):
                 stack.enter_context(patched(pipeline, name, self._longest))
             stack.enter_context(patched(pipeline, "rescorediagonal_cuda",
@@ -2019,7 +2103,12 @@ class DeepTrace:
             stack.enter_context(patched(
                 correction_cuda, "correction_kernel",
                 self._kernel("correction", CORR_LEN_LEVELS, 1,
-                             lambda a: int((a[2][:, 5] != 0).sum()))))
+                             lambda a: int((a[2][:, 5] != 0).sum()),
+                             rows=lambda a: a[3].shape[0] // a[6])))
+            for mod, name in ((window_cuda, "window_identity"),
+                              (ext_cuda, "consensus_likelihood")):
+                stack.enter_context(patched(mod, name, self._kernel(
+                    name, None, 1, lambda a: a[1].shape[0])))
             if self.subtimes_path:
                 old = utils._SUBTIMING
                 utils._SUBTIMING = True
@@ -2031,10 +2120,12 @@ class DeepTrace:
             self.subtimes = dict(utils.SUBTIMES)
 
 
-def subtimes_by_level(subtimes: dict) -> dict:
-    """The rescore and correction sub-timers (seconds summed over the
-    run), correction's per-width ones (corr.<step>_L<width>) summed by
-    the ladder level of the width (corr.<step>_lvl<level>)."""
+def subtimes_by_level(subtimes: dict,
+                      prefixes=("rescore.", "corr.")) -> dict:
+    """The sub-timers whose names start with one of `prefixes` (None:
+    all), seconds summed over the run, correction's per-width ones
+    (corr.<step>_L<width>) summed by the ladder level of the width
+    (corr.<step>_lvl<level>)."""
     import re
 
     from carpedeam_tpu_torch.ops.correction_cuda import CORR_LEN_LEVELS
@@ -2044,7 +2135,7 @@ def subtimes_by_level(subtimes: dict) -> dict:
         if m:
             lvl = ladder_level(int(m.group(2)), CORR_LEN_LEVELS)
             k = f"{m.group(1)}_lvl{lvl}"
-        if k.startswith(("rescore.", "corr.")):
+        if prefixes is None or k.startswith(prefixes):
             out[k] = out.get(k, 0.0) + v
     return {k: round(v, 3) for k, v in sorted(out.items())}
 
@@ -2125,9 +2216,7 @@ def check_deep(n_reads: int, out_dir: str, device: str = "cuda") -> dict:
     for k in ("window_identity", "consensus_likelihood"):
         check(kernel["launches"][k] == 0, f"{k} launched under --unsafe")
     tr = traces["kernel"]
-    levels = {}
-    for (k, ph, lvl), d in sorted(tr.levels.items()):
-        levels.setdefault(k, {}).setdefault(ph, {})[str(lvl)] = d
+    levels = tr.by_kernel()
     for k in ("rescore_pairs", "correction"):
         for ph in ("read", "contig"):
             check(sum(d["launches"] for d in
@@ -2140,8 +2229,15 @@ def check_deep(n_reads: int, out_dir: str, device: str = "cuda") -> dict:
             f"{k}: per-level launches do not add up to its count")
     reached = {k: sorted({int(lvl) for per in v.values() for lvl in per})
                for k, v in levels.items()}
-    host_rest = {f"{stage} {ph}": d
-                 for (stage, ph), d in sorted(tr.host.items())}
+    # every ladder level, as the 500k run reached them (the CPU rehearsal
+    # runs too few reads)
+    from carpedeam_tpu_torch.ops.correction_cuda import CORR_LEN_LEVELS
+    from carpedeam_tpu_torch.ops.rescore_cuda import LEN_LEVELS
+    check(device == "cpu" or (
+        reached.get("rescore_pairs") == list(LEN_LEVELS)
+        and reached.get("correction") == list(CORR_LEN_LEVELS)),
+        f"the deep run did not reach every ladder level: {reached}")
+    host_rest = tr.host_records()
     phase("deep", "ladder levels reached " + json.dumps(reached))
     phase("deep", "per level (launches, records on the card) "
           + json.dumps(levels))
@@ -2162,11 +2258,518 @@ def check_deep(n_reads: int, out_dir: str, device: str = "cuda") -> dict:
             "coverage": kernel["coverage"], "kernel_rows": rows}
 
 
+# ---- the default pipeline at a real size ---------------------------------
+
+# BASELINE.json config 3: a 10-species mock ancient community, default
+# flags; `--scale N` draws N reads of it
+SCALE_SEED = 4
+SCALE_SPECIES = 10
+# sha256 of the JAX package's FASTA on those reads, by N: its
+# ancient_assemble with --use-device 0 and default flags under
+# JAX_PLATFORMS=cpu, handed the port's SeqDB (PERF.md section 4)
+JAX_FASTA_SHA256 = {
+    1_000_000:
+        "fa9fe4f5e8815acc8a403a1f4507e16d33f88297f8bfd17569ca2d6f696b6d1b",
+}
+# route -> (--use-device, CARPEDEAM_KMER_DEVICE); the device kmermatcher
+# rides along up to SCALE_KMER_READS
+SCALE_ROUTES = {"kernel": ("auto", False), "host": ("0", False),
+                "kmer_device": ("auto", True)}
+SCALE_KMER_READS = 1_000_000
+SCALE_KERNELS = ("rescore_pairs", "correction", "window_identity",
+                 "consensus_likelihood")
+SCALE_STAGES = ("rescorediagonal", "correction", "extension_scoring")
+
+
+def default_params(use_device: str, flags=()):
+    """Params parsed from `flags` and `--use-device` by the flag parser of
+    the port's CLI (no flags: the default pipeline)."""
+    import argparse
+
+    from carpedeam_tpu_torch.params import add_flags, params_from_args
+    ap = argparse.ArgumentParser()
+    add_flags(ap)
+    return params_from_args(ap.parse_args(
+        [*flags, "--use-device", use_device]))
+
+
+def scale_reads(n_reads: int):
+    from carpedeam_tpu_torch import workload
+    return workload.generate(SCALE_SEED, n_reads, coverage=20.0,
+                             species=SCALE_SPECIES)
+
+
+# BASELINE.json config 2: heavy-damage short reads (gargammel E. coli,
+# about 35 bp mean, about 0.3 C->T) with 5 + 9 iterations; a drawn genome
+# stands in for gargammel's, which is not in the repo
+SHORT_FLAGS = ("--num-iter-reads-only", "5", "--num-iterations", "14")
+SHORT_READS = 120_000
+# terminal C->T and G->A rates 0.30 falling by 0.8 a position over 15
+# positions, then the interior rate 0.01 (tools/make_workload.py's rate
+# past a profile's rows)
+SHORT_RATES = tuple(0.30 * 0.8 ** i for i in range(15)) + (0.01,)
+
+
+def short_reads(seed: int, n_reads: int):
+    """Config 2's reads: lengths 25-120 with mean 35, SHORT_RATES at both
+    ends."""
+    from carpedeam_tpu_torch import workload
+    return workload.generate(seed, n_reads, coverage=20.0, min_len=25,
+                             mean_len=35.0, ct5=SHORT_RATES,
+                             ga3=SHORT_RATES)
+
+
+def scale_route(n_reads: int, route: str, out_dir: str,
+                device: str = "cuda") -> int:
+    """One route of `--scale`, run in a child process of its own so that
+    its peak host RSS is its own: ancient_assemble on the config-3 reads,
+    traced per kernel and ladder level; writes scale_<route>.json."""
+    import hashlib
+    import resource
+
+    import torch
+
+    from carpedeam_tpu_torch import utils
+    from carpedeam_tpu_torch.damage import DamageModel
+    utils.set_verbosity(2)
+    use, kmer_device = SCALE_ROUTES[route]
+    reads, rates = scale_reads(n_reads)
+    damage = DamageModel.from_rates(*rates)
+    params = default_params(use)
+    trace = DeepTrace(params.kmer_size_reads, os.path.join(
+        out_dir, f"scale_{route}_subtimes.log"), label="scale-run",
+        keep_largest=False)
+    run = run_assemble(f"scale_{route}", reads, params, damage, out_dir,
+                       kmer_device=kmer_device, device=device,
+                       hooks=trace.installed)
+    fasta = run.pop("fasta")
+    lens = [int(h.split(b"len:")[1].split()[0])
+            for h in fasta.split(b"\n") if h.startswith(b">")]
+    out = {"route": route, "use_device": use, "kmer_device": kmer_device,
+           "reads": len(reads), "residues": int(reads.total_residues),
+           **run, "levels": trace.by_kernel(),
+           "shapes": {f"{k} L={w}": v
+                      for (k, w), v in sorted(trace.shapes.items())},
+           "host_records": trace.host_records(),
+           "longest": trace.longest,
+           "subtimes": subtimes_by_level(trace.subtimes, prefixes=None),
+           "contigs": len(lens), "longest_contig": max(lens),
+           "fasta_bytes": len(fasta),
+           "fasta_sha256": hashlib.sha256(fasta).hexdigest(),
+           "peak_rss_gib": resource.getrusage(
+               resource.RUSAGE_SELF).ru_maxrss / 2 ** 20,
+           "max_device_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                             if torch.cuda.is_initialized() else 0.0)}
+    with open(os.path.join(out_dir, f"scale_{route}.json"), "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def check_scale(n_reads: int, out_dir: str, device: str = "cuda") -> dict:
+    """`--scale N`: the default pipeline on N reads of the config-3
+    community on the kernel route and the host route (and with the device
+    kmermatcher up to SCALE_KMER_READS), each in a child process: equal
+    FASTA, equal to the JAX package's where its hash is recorded, all four
+    kernels launched on the kernel route and none on the host route,
+    every device stage with records on the card.  On the CPU (a rehearsal)
+    the kernel route runs the plain versions and launches nothing."""
+    phase("scale-run", f"workload: {n_reads} reads of {SCALE_SPECIES} "
+          f"species (seed {SCALE_SEED}), default flags")
+    routes = [r for r in SCALE_ROUTES
+              if r != "kmer_device" or n_reads <= SCALE_KMER_READS]
+    res = {}
+    for route in routes:
+        t0 = time.perf_counter()
+        rc = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+             f"chip_smoke.scale_route({n_reads}, {route!r}, {out_dir!r}, "
+             f"{device!r}))"],
+            cwd=REPO, timeout=3600).returncode
+        check(rc == 0, f"the {route} route exited with {rc}")
+        with open(os.path.join(out_dir, f"scale_{route}.json")) as fh:
+            r = json.load(fh)
+        res[route] = r
+        phase("scale-run", f"{route} route ({r['residues']} residues): "
+              f"{r['contigs']} contigs, longest "
+              f"{r['longest_contig']}, wall {r['wall']:.2f} s (child "
+              f"{time.perf_counter() - t0:.2f} s); peak host RSS "
+              f"{r['peak_rss_gib']:.3f} GiB, peak device memory "
+              f"{r['max_device_gib']:.3f} GiB; sha256 {r['fasta_sha256']}")
+        for key in ("stages", "subtimes", "levels", "shapes", "coverage",
+                    "host_records", "longest"):
+            phase("scale-run", f"{route} route: {key} " + json.dumps(
+                {k: round(v, 3) for k, v in r[key].items()}
+                if key in ("stages", "subtimes") else r[key]))
+    kern, host = res["kernel"], res["host"]
+    check(kern["fasta_sha256"] == host["fasta_sha256"],
+          "the kernel route's FASTA differs from the host route's")
+    ref = JAX_FASTA_SHA256.get(n_reads)
+    if ref is not None:
+        check(kern["fasta_sha256"] == ref, "the FASTA differs from the JAX "
+              "package's")
+    for k in SCALE_KERNELS:
+        check(device == "cpu" or kern["launches"][k] > 0,
+              f"kernel {k} did not launch on the kernel route")
+    check(not any(host["launches"].values()),
+          f"the host route launched kernels: {host['launches']}")
+    for st in SCALE_STAGES:
+        d = kern["coverage"].get(st)
+        check(d is not None and d["device"] > 0,
+              f"stage {st} ran no records on the card")
+    if "kmer_device" in res:
+        kd = res["kmer_device"]
+        check(kd["fasta_sha256"] == kern["fasta_sha256"],
+              "the CARPEDEAM_KMER_DEVICE=1 FASTA differs")
+        km = kd["coverage"].get("kmermatcher")
+        check(km is not None and km["host"] == 0 and km["device"] > 0,
+              f"kmermatcher calls not all on the card: {km}")
+    phase("scale-run", f"FASTA byte-identical on {len(res)} routes "
+          f"({kern['fasta_bytes']} bytes, {kern['contigs']} contigs); "
+          + (f"equal to the JAX package's ({ref})" if ref else
+             "no JAX hash recorded at this size: held route against route"))
+    return {"reads": n_reads, "seed": SCALE_SEED,
+            "species": SCALE_SPECIES, "jax_sha256": ref, "routes": res}
+
+
+def check_short(n_reads: int, out_dir: str, device: str = "cuda") -> dict:
+    """Phase `short`: config 2 (SHORT_FLAGS on short_reads(5, n_reads))
+    on the kernel route and the host route: equal FASTA and equal
+    sequences after every iteration; all four kernels launched on the
+    kernel route, none on the host route, every device stage with records
+    on the card."""
+    from carpedeam_tpu_torch.damage import DamageModel
+    reads, rates = short_reads(5, n_reads)
+    damage = DamageModel.from_rates(*rates)
+    phase("short", f"workload: {len(reads)} reads, {reads.total_residues} "
+          f"residues, mean length {reads.lengths.mean():.2f}; flags "
+          + " ".join(SHORT_FLAGS))
+    runs, longest = {}, {}
+    for route, use in (("kernel", "auto"), ("host", "0")):
+        params = default_params(use, SHORT_FLAGS)
+        trace = DeepTrace(params.kmer_size_reads, label="short",
+                          keep_largest=False)
+        runs[route] = run_assemble("short", reads, params, damage, out_dir,
+                                   kmer_device=False, device=device,
+                                   hooks=trace.installed)
+        longest[route] = trace.longest
+    kern, host = runs["kernel"], runs["host"]
+    check(len(longest["kernel"]) == 14, "config 2 did not run 14 iterations")
+    check(longest["kernel"] == longest["host"],
+          "the two routes grew different sequences")
+    check(kern["fasta"] == host["fasta"], "config 2's FASTA differs between "
+          "the kernel route and the host route")
+    check(not any(host["launches"].values()),
+          f"the host route launched kernels: {host['launches']}")
+    for k in SCALE_KERNELS:
+        check(device == "cpu" or kern["launches"][k] > 0,
+              f"kernel {k} did not launch on config 2's kernel route")
+    for st in SCALE_STAGES:
+        d = kern["coverage"].get(st)
+        check(d is not None and d["device"] > 0,
+              f"stage {st} ran no records on the card")
+    phase("short", f"FASTA byte-identical on both routes "
+          f"({len(kern['fasta'])} bytes, {kern['fasta'].count(b'>')} "
+          f"contigs); longest sequence after each iteration "
+          + json.dumps(longest["kernel"]))
+    return {"reads": n_reads, "flags": " ".join(SHORT_FLAGS),
+            "wall_s": {r: v["wall"] for r, v in runs.items()},
+            "stages_s": {r: v["stages"] for r, v in runs.items()},
+            "launches": kern["launches"], "coverage": kern["coverage"],
+            "contigs": kern["fasta"].count(b">"), "longest": longest["kernel"]}
+
+
+# ---- phase scale: the kernels at the 5M run's largest call shapes ---------
+
+# the largest call of each kernel at the widths the 5M run gave it
+# (`--scale 5000000`, PERF.md section 6): (kernel, plane width, rescore
+# pairs / correction blocks / window and consensus records, plane rows
+# 2N); rescore at 128 and correction at 512 are the read and contig
+# phases' first iterations
+SCALE_CALLS = (("rescore_pairs", 128, 14_278_641, 10_000_000),
+               ("rescore_pairs", 512, 6_825_866, 10_000_000),
+               ("correction", 512, 145_810, 10_000_000),
+               ("window_identity", 128, 2_354_590, 10_000_000),
+               ("consensus_likelihood", 128, 1_839_824, 10_000_000))
+# what the plane derivation may allocate above its inputs, past its output
+# (PERF.md section 6): assemble_planes took 0.29 GiB at the 5M contig
+# phase's (10M, 512) plane, derive_corrected_planes 0.99 GiB at (10M, 128),
+# 0.60 GiB of it the corrected forward plane
+SCALE_DERIVE_SCRATCH = 3 << 29
+
+
+def scale_plane(gen, n: int, L: int, hi: int):
+    """(forward symbol plane, lengths, offsets): n rows of lengths 25..hi
+    (capped at L) read at random offsets of a random genome at coverage
+    20 with 1% random bases, and each row's genome offset (two rows'
+    offsets give their alignment)."""
+    import torch
+
+    from carpedeam_tpu_torch.ops.planes import row_chunks
+    dev = gen.device
+    lens = torch.randint(25, hi + 1, (n,), generator=gen, device=dev,
+                         dtype=torch.int32).clamp(max=L)
+    glen = max(int(lens.sum().item()) // 20, 4 * L)
+    genome = torch.randint(0, 4, (glen + L,), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    off = torch.randint(0, glen, (n,), generator=gen, device=dev)
+    acgt = torch.tensor(list(b"ACGT"), dtype=torch.uint8, device=dev)
+    pos = torch.arange(L, device=dev)
+    sym = torch.empty((n, L), dtype=torch.uint8, device=dev)
+    for a, b in row_chunks(n, L):
+        code = genome[off[a:b, None] + pos[None, :]]
+        noise = torch.randint(0, 4, code.shape, generator=gen, device=dev,
+                              dtype=torch.uint8)
+        hit = torch.rand(code.shape, generator=gen, device=dev) < 0.01
+        row = acgt[torch.where(hit, noise, code).long()]
+        sym[a:b] = torch.where(pos[None, :] < lens[a:b, None], row, 0)
+    return sym, lens, off
+
+
+def _neighbours(gen, off, q):
+    """For each query row in q, one of the eight rows after it by genome
+    offset (an overlapping row)."""
+    import torch
+    n = off.shape[0]
+    order = torch.argsort(off)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n, device=off.device)
+    step = torch.randint(1, 9, q.shape, generator=gen, device=off.device)
+    return order[(rank[q] + step).clamp(max=n - 1)]
+
+
+def scale_inputs(gen, kernel: str, rows: int, planes, off, tables):
+    """Arguments of `kernel` with `rows` pairs, blocks or records of
+    overlapping rows of `planes` (offsets `off`), drawn from `gen`;
+    `tables`: the correction and consensus weight tables."""
+    import torch
+
+    from carpedeam_tpu_torch.ops.correction_cuda import _tiles_for
+    n = off.shape[0]
+    dev = off.device
+    lens = planes["len"].to(torch.int64)
+
+    def i32(*cols):
+        return torch.stack(cols, dim=1).to(torch.int32).contiguous()
+    if kernel == "correction":
+        g, rt = _tiles_for(planes["sym"].shape[1])
+        slot_q = torch.randint(0, n, (rows * g,), generator=gen, device=dev)
+        q = slot_q.repeat_interleave(rt // g)      # rt / g records a slot
+    else:
+        q = torch.randint(0, n, (rows,), generator=gen, device=dev)
+    t = _neighbours(gen, off, q)
+    qstart = (off[t] - off[q]).clamp(min=0)
+    tstart = (off[q] - off[t]).clamp(min=0)
+    alen = torch.minimum(lens[q] - qstart, lens[t] - tstart).clamp(min=0)
+    zero = torch.zeros_like(q)
+    if kernel == "rescore_pairs":
+        rev = torch.rand(rows, generator=gen, device=dev) < 0.5
+        qf = q | torch.where(rev, -(1 << 31), 0)
+        return (planes["code"], planes["sym"], planes["len"],
+                i32(qf, t, (off[t] - off[q]) % 65536))
+    if kernel == "correction":
+        use = (alen > 0) & (torch.rand(q.shape, generator=gen, device=dev)
+                            < 0.9)
+        slot = torch.arange(q.shape[0], device=dev) % rt // (rt // g)
+        rscal = i32(qstart, tstart, alen, lens[t], alen * 9 // 10,
+                    use.long(), torch.where(use, slot, g), zero)
+        was_ext = torch.rand(rows * g, generator=gen, device=dev) < 0.1
+        qscal = i32(lens[slot_q], was_ext.long(),
+                    *([torch.zeros_like(slot_q)] * 6))
+        return (planes["sym"], t.to(torch.int32), rscal,
+                slot_q.to(torch.int32), qscal, tables["wtab"], g, rt)
+    if kernel == "window_identity":
+        return (planes["sym"], q.to(torch.int32), t.to(torch.int32),
+                i32(qstart, tstart, alen, zero))
+    return (planes["sym"], q.to(torch.int32), t.to(torch.int32),
+            i32(off[t] - off[q], lens[q], lens[t], zero, lens[t], zero,
+                zero, zero), tables["logm"])
+
+
+def records_plain(reference, sym2, *args):
+    """`reference` (window_identity_reference or
+    consensus_likelihood_reference) over chunks of records (each record's
+    row reads its own two plane rows alone), PLAIN_CELLS cells a pass;
+    the arguments past the three per-record ones pass whole."""
+    import torch
+    per, rest = args[:3], args[3:]
+    step = max(1, PLAIN_CELLS // sym2.shape[1])
+    return torch.cat([reference(sym2, *(a[i:i + step] for a in per), *rest)
+                      for i in range(0, per[0].shape[0], step)])
+
+
+def correction_ops(args) -> float:
+    """_correction_ops over chunks of blocks (a block's cells and classes
+    are its own)."""
+    sym2, rec_rows, rscal, slot_qid, qscal, wtab, g, rt = args
+    nb = slot_qid.shape[0] // g
+    step = max(1, PLAIN_CELLS // (rt * sym2.shape[1]))
+    return sum(_correction_ops(
+        sym2, rec_rows[b * rt:(b + step) * rt],
+        rscal[b * rt:(b + step) * rt], slot_qid[b * g:(b + step) * g],
+        qscal[b * g:(b + step) * g], wtab, g, rt)
+        for b in range(0, nb, step))
+
+
+def check_scale_derive(gen, sym, lens) -> dict:
+    """The chunked plane derivation (assemble_planes) at the 5M contig
+    phase's shared-plane shape and the corrected-plane derivation
+    (derive_corrected_planes) at that row count, 128 wide: peak device
+    memory above the inputs within the output and SCALE_DERIVE_SCRATCH,
+    1,000 rows of each equal to the CPU's derivation of those rows."""
+    import torch
+
+    from carpedeam_tpu_torch.ops.correction_cuda import \
+        derive_corrected_planes
+    from carpedeam_tpu_torch.ops.planes import assemble_planes
+    n, L = sym.shape
+    out = {}
+    on_card = sym.device.type == "cuda"
+    idx = torch.randperm(n, generator=gen, device=gen.device)[:1000]
+    for name in ("assemble_planes", "derive_corrected_planes"):
+        if name == "assemble_planes":
+            args = (sym, lens)
+            fn = assemble_planes
+        else:
+            lens = lens.clamp(max=128)
+            planes = assemble_planes(sym[:, :128].contiguous(), lens)
+            packed = torch.randint(0, 256, ((n + 3) // 4, 128),
+                                   generator=gen, device=gen.device,
+                                   dtype=torch.uint8)
+            src = torch.randperm(packed.shape[0] * 4, generator=gen,
+                                 device=gen.device)[:n].to(torch.int32)
+            src[::7] = -1
+            args = (planes["sym"], lens, packed, src)
+            fn = derive_corrected_planes
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        got = fn(*args)
+        sync()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base if on_card else 0
+        made = sum(v.numel() * v.element_size() for v in got.values())
+        check(peak <= made + SCALE_DERIVE_SCRATCH, f"{name} took {peak} "
+              f"bytes above its inputs, over its {made}-byte output and "
+              f"{SCALE_DERIVE_SCRATCH} bytes of scratch")
+        if name == "assemble_planes":
+            cpu = assemble_planes(sym[idx].cpu(), lens[idx].cpu())
+        else:
+            cpu = derive_corrected_planes(planes["sym"][idx].cpu(),
+                                          lens[idx].cpu(), packed.cpu(),
+                                          src[idx].cpu())
+        # rows idx, forward and reverse, equal the CPU's derivation of
+        # those rows alone
+        k = idx.shape[0]
+        for plane in ("sym", "code"):
+            for part, rows in ((slice(0, k), idx),
+                               (slice(k, 2 * k), idx + n)):
+                check(torch.equal(got[plane][rows].cpu(), cpu[plane][part]),
+                      f"{name}: the derived {plane} plane differs from the "
+                      f"CPU's")
+        shape = list(got["sym"].shape)
+        phase("scale", f"{name} at {shape}: {secs:.3f} s, peak device "
+              f"memory {peak / 2 ** 30:.3f} GiB above its inputs "
+              f"(output {made / 2 ** 30:.3f} GiB); 1000 rows equal to the "
+              f"CPU's")
+        out[name] = {"shape": shape, "s": secs, "peak_gib": peak / 2 ** 30,
+                     "output_gib": made / 2 ** 30}
+        del got
+    return out
+
+
+def check_scale_kernels(damage, device: str = "cuda",
+                        calls=SCALE_CALLS) -> dict:
+    """Phase `scale`: the plane derivation at the 5M contig phase's shape
+    (check_scale_derive), then each kernel at its largest call shape of
+    the 5M run (SCALE_CALLS) on synthetic overlapping rows from a seeded
+    generator, bit for bit against its plain version in chunks, with its
+    times and bound.  On the CPU (a rehearsal at small `calls`) the
+    wrappers run their plain versions and nothing is timed."""
+    import numpy as np
+    import torch
+
+    from carpedeam_tpu_torch.convert import consensus_logm
+    from carpedeam_tpu_torch.ops import correction_cuda
+    from carpedeam_tpu_torch.ops.planes import assemble_planes
+    gen = torch.Generator(device=device).manual_seed(5_000_000)
+    tables = {"wtab": torch.from_numpy(correction_cuda.correction_wtab(
+                  damage)).to(device),
+              "logm": torch.from_numpy(np.ascontiguousarray(
+                  consensus_logm(damage), dtype=np.float32)).to(device)}
+    derive, rows = None, []
+    for width in sorted({c[1] for c in calls}, reverse=True):
+        n = max(c[3] for c in calls if c[1] == width) // 2
+        sym, lens, off = scale_plane(gen, n, width, 120 if width == 128
+                                     else width)
+        if width == 512:
+            derive = check_scale_derive(gen, sym, lens)
+        planes = assemble_planes(sym, lens)
+        del sym
+        for kernel, w, n_rows, _ in calls:
+            if w != width:
+                continue
+            args = scale_inputs(gen, kernel, n_rows, planes, off, tables)
+            rows.append(scale_row(kernel, args))
+            del args
+        del planes, off
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    return {"derive": derive, "kernel_rows": rows}
+
+
+def scale_row(kernel: str, args) -> dict:
+    """One kernel call of phase scale against its plain version in
+    chunks, with its times and bound."""
+    import torch
+
+    from carpedeam_tpu_torch.ops import (correction_cuda, ext_cuda,
+                                         rescore_cuda, window_cuda)
+    if kernel == "rescore_pairs":
+        fn, plain = rescore_cuda.rescore_pairs, rescore_plain
+    elif kernel == "correction":
+        fn, plain = correction_cuda.correction_kernel, correction_plain
+    elif kernel == "window_identity":
+        fn = window_cuda.window_identity
+        plain = (lambda *a: records_plain(
+            window_cuda.window_identity_reference, *a))
+    else:
+        fn = ext_cuda.consensus_likelihood
+        plain = (lambda *a: records_plain(
+            ext_cuda.consensus_likelihood_reference, *a))
+    out = fn(*args)
+    ref = plain(*args)
+    sync()
+    check(torch.equal(out, ref), f"{kernel} differs from its plain version "
+          f"at the 5M run's shape")
+    L = args[0].shape[1]
+    if kernel == "rescore_pairs":
+        cols, nbytes = _rescore_need(args[0], args[2], args[3], out)
+        ops, case = 2.0 * cols, f"L={L} P={args[3].shape[0]}"
+    elif kernel == "correction":
+        nbytes = _correction_bytes(*args, out)
+        ops = correction_ops(args)
+        case = (f"L={L} blocks={args[3].shape[0] // args[6]} "
+                f"G={args[6]} R={args[7]}")
+    else:
+        need = (_window_need if kernel == "window_identity"
+                else _consensus_need)
+        nbytes, ops = need(args, out)
+        case = f"L={L} n={args[1].shape[0]}"
+    if out.device.type == "cpu":
+        return {"name": kernel, "case": case, "bytes": nbytes, "ops": ops}
+    row = kernel_row("scale", kernel, case, lambda: fn(*args),
+                     lambda: plain(*args), nbytes, ops, 0, plain_reps=1)
+    return {"name": kernel, **row}
+
+
 def main(argv: list[str]) -> int:
     import torch
-    deep_only = argv[:1] == ["--deep"]
-    if argv and not (deep_only and len(argv) == 2 and argv[1].isdigit()):
-        print("usage: chip_smoke.py [--deep N]", file=sys.stderr)
+    alone = argv[0] if argv else None
+    if argv and not (alone in ("--deep", "--scale") and len(argv) == 2
+                     and argv[1].isdigit()):
+        print("usage: chip_smoke.py [--deep N | --scale N]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2198,13 +2801,16 @@ def main(argv: list[str]) -> int:
           f"{'(cached)' if nb.cached else ''} -> {nb.path}")
     out_dir = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
-    if deep_only:
+    if alone:
         from carpedeam_tpu_torch import utils
         utils.set_verbosity(2)
-        deep = check_deep(int(argv[1]), out_dir)
-        phase("done", f"phase deep passed in {time.perf_counter() - T0:.1f} s")
+        name = alone[2:]
+        got = (check_deep if name == "deep" else check_scale)(int(argv[1]),
+                                                              out_dir)
+        phase("done", f"phase {name} passed in "
+              f"{time.perf_counter() - T0:.1f} s")
         print(smi_line, flush=True)
-        print(json.dumps({"deep": deep}), flush=True)
+        print(json.dumps({name: got}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": device_name,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -2332,6 +2938,10 @@ def main(argv: list[str]) -> int:
     fa15, prefix, base15 = check_world(reads, w15, rates, out_dir, "cuda")
     check_mesh(dbs, params, damage, fa15, prefix, base15, out_dir, "cuda")
 
+    # ---- short, scale ----------------------------------------------------
+    short = check_short(SHORT_READS, out_dir)
+    scale = check_scale_kernels(damage)
+
     # ---- deep ----------------------------------------------------------
     deep = check_deep(DEEP_READS, out_dir)
 
@@ -2353,7 +2963,8 @@ def main(argv: list[str]) -> int:
     phase("done", f"all phases passed in {time.perf_counter() - T0:.1f} s")
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels, "stages": stages, "mlp": mlp,
-                      "deep": deep}), flush=True)
+                      "short": short, "scale": scale, "deep": deep}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}), flush=True)

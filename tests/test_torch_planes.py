@@ -78,3 +78,70 @@ def test_derived_corrected_planes_match_jax():
                                    jnp.asarray(src))
     for k in ("code", "sym", "len"):
         assert np.array_equal(mine[k].numpy(), np.asarray(ref[k])), k
+
+
+def _rows_of_every_length(seed: int, n: int, L: int):
+    """(N, L) forward symbol rows of random lengths, among them rows of
+    length 0, L, longer than L (truncated to the plane, as the shared
+    planes hold contigs past 512) and lengths that are no multiple of
+    16, with N, IUPAC and lowercase characters."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 2 * L, n)
+    lens[:6] = (0, L, L + 37, 17, L - 1, 1)
+    chars = np.frombuffer(b"ACGTACGTACGTNRYacgt", np.uint8)
+    sym = chars[rng.integers(0, len(chars), (n, L))]
+    sym[np.arange(L)[None, :] >= lens[:, None]] = 0
+    return sym, lens.astype(np.int32)
+
+
+@pytest.mark.parametrize("cells", [1, 3 * 48 + 5, 10 * 48])
+def test_chunked_planes_match_jax_and_one_pass(monkeypatch, cells):
+    """The derivation in row chunks (one row, three rows and a bit, ten
+    rows a pass) equals the JAX package's _assemble_planes and the same
+    derivation in one pass, bit for bit."""
+    sym, lens = _rows_of_every_length(11, 37, 48)
+    t_sym, t_len = torch.from_numpy(sym), torch.from_numpy(lens)
+    whole = P.assemble_planes(t_sym, t_len)
+    monkeypatch.setattr(P, "DERIVE_CELLS", cells)
+    assert len(P.row_chunks(37, 48)) > 1
+    got = P.assemble_planes(t_sym, t_len)
+    ref = _assemble_planes(jnp.asarray(sym), jnp.asarray(lens))
+    for k in ("code", "sym", "len"):
+        assert np.array_equal(got[k].numpy(), np.asarray(ref[k])), k
+        assert torch.equal(got[k], whole[k]), k
+
+
+@pytest.mark.parametrize("cells", [1, 5 * 64 + 9])
+def test_chunked_corrected_planes_match_jax_and_one_pass(monkeypatch,
+                                                         cells):
+    """derive_corrected_planes in row chunks equals the JAX package's
+    _derive_corrected_planes and its own one-pass form, with sequences
+    that have no slot (src < 0) and rows of length 0, L, past L and no
+    multiple of 16."""
+    sym, lens = _rows_of_every_length(12, 41, 64)
+    rng = np.random.default_rng(4)
+    t_len = torch.from_numpy(lens)
+    planes = P.assemble_planes(torch.from_numpy(sym), t_len)
+    packed = rng.integers(0, 256, (12, 64)).astype(np.uint8)
+    src = rng.integers(-1, 12 * 4, len(lens)).astype(np.int32)
+    src[:3] = (-1, 0, 12 * 4 - 1)
+    args = (planes["sym"], t_len, torch.from_numpy(packed),
+            torch.from_numpy(src))
+    whole = derive_corrected_planes(*args)
+    monkeypatch.setattr(P, "DERIVE_CELLS", cells)
+    got = derive_corrected_planes(*args)
+    ref = _derive_corrected_planes(jnp.asarray(planes["sym"].numpy()),
+                                   jnp.asarray(lens),
+                                   jnp.asarray(packed.view(np.int8)),
+                                   jnp.asarray(src))
+    for k in ("code", "sym", "len"):
+        assert np.array_equal(got[k].numpy(), np.asarray(ref[k])), k
+        assert torch.equal(got[k], whole[k]), k
+
+
+def test_row_chunks_cover_every_row_once(monkeypatch):
+    assert P.row_chunks(0, 8) == []
+    assert P.row_chunks(5, 8) == [(0, 5)]
+    monkeypatch.setattr(P, "DERIVE_CELLS", 9)
+    assert P.row_chunks(10, 4) == [(0, 2), (2, 4), (4, 6), (6, 8), (8, 10)]
+    assert P.row_chunks(3, 100) == [(0, 1), (1, 2), (2, 3)]
